@@ -1,0 +1,229 @@
+"""Inference CLI: ``python -m ryolo_tpu_torch.detect``.
+
+Port of the JAX ``detect.py`` (:34-203) with the same arguments plus
+``--device`` (default ``cuda``; the CPU only when asked, and no fallback
+when no card is found).  The ``.pth`` is deploy-fused
+(:func:`ryolo_tpu_torch.nn.deploy.fuse_for_inference`), each batch runs
+forward -> deferred CSL decode -> post-process with rotated NMS on the
+device, and a background thread letterboxes the next batches meanwhile.
+Decode and post-process stay float32 under ``--dtype bf16``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ryolo_tpu_torch.data.datasets import ImageDataset
+from ryolo_tpu_torch.eval.postprocess import post_process_defer
+from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference
+from ryolo_tpu_torch.nn.heads import decode_csl_defer
+from ryolo_tpu_torch.utils.checkpoint import load_pth
+from ryolo_tpu_torch.utils.config import load_yaml
+from ryolo_tpu_torch.utils.logger import logger
+from ryolo_tpu_torch.utils.plot import plot_boxes
+
+STAGES = ("forward", "decode", "post_process")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device asked for; a CUDA device must exist (no CPU fallback)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available "
+                           "(pass --device cpu to run on the CPU)")
+    return dev
+
+
+class _Stages:
+    """Per-batch stage times: CUDA events on the card, the host clock on
+    the CPU.  Read after the batch's results reached the host."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def elapsed_ms(self):
+        m = self.marks
+        if self.cuda:
+            return [m[i].elapsed_time(m[i + 1]) for i in range(len(m) - 1)]
+        return [(m[i + 1] - m[i]) * 1e3 for i in range(len(m) - 1)]
+
+
+class Detect:
+    def __init__(self, args):
+        self.args = args
+        # filled by detect(): per-batch infer seconds, stage ms, and the
+        # whole run's seconds
+        self.batch_s: list = []
+        self.stage_ms: list = []
+        self.total_s = 0.0
+
+    def _build_model(self, nc: int, config, device: torch.device):
+        args = self.args
+        if args.dtype == "int8":
+            raise NotImplementedError(
+                "--dtype int8: the int8 deploy path comes with ROADMAP §A14")
+        model = Yolo(nc, config["model"], mode=args.mode, ver=args.ver)
+        model.load_state_dict(load_pth(args.weight_path), strict=True)
+        logger.info(f"Loaded {len(model.state_dict())} tensors from "
+                    f"{args.weight_path}")
+        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
+        if device.type == "cuda" and dtype == torch.float32:
+            # cuDNN convolutions default to TF32; the f32 path is f32
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            logger.info("TF32 off: cudnn.allow_tf32=%s matmul.allow_tf32=%s"
+                        % (torch.backends.cudnn.allow_tf32,
+                           torch.backends.cuda.matmul.allow_tf32))
+        return fuse_for_inference(model, dtype=dtype, device=device), dtype
+
+    @torch.no_grad()
+    def infer(self, model: Yolo, images: np.ndarray, dtype, device, nc: int,
+              stages: _Stages):
+        """uint8 ``(B, S, S, 3)`` RGB batch -> ``(dets, valid)`` on device."""
+        mark = stages.mark
+        x = torch.from_numpy(images).to(device)
+        mark()
+        x = (x.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
+        heads = model(x)
+        mark()
+        dec = decode_csl_defer(heads, model.anchors, STRIDES, nc)
+        mark()
+        dets, valid = post_process_defer(
+            dec, heads, model.na, nc, float(self.args.conf_thres),
+            float(self.args.nms_thres))
+        mark()
+        return dets, valid
+
+    def detect(self):
+        """Run the CLI; returns ``[(path, (n, 7) detections)]``."""
+        args = self.args
+        if args.mode != "csl":
+            raise NotImplementedError(
+                f"--mode {args.mode}: KFIoU comes with ROADMAP §A2")
+        if args.ver != "yolov7":
+            raise NotImplementedError(
+                f"--ver {args.ver}: v4/v5 come with ROADMAP §A2")
+        device = resolve_device(args.device)
+        data = load_yaml(args.data)
+        config = load_yaml(args.hyp)
+        nc = len(data["names"])
+
+        dataset = ImageDataset(data["test"], img_size=args.img_size,
+                               ext=args.ext)
+        if not len(dataset):
+            logger.error(f"No .{args.ext} images found under {data['test']}")
+            sys.exit(1)
+        if not os.path.isfile(args.weight_path):
+            logger.error("Model weight not found.")
+            sys.exit(1)
+        if device.type == "cuda":
+            torch.backends.cudnn.benchmark = True  # fixed input shape
+        model, dtype = self._build_model(nc, config, device)
+
+        save_folder = os.path.join("outputs", "inference")
+        os.makedirs(save_folder, exist_ok=True)
+        bs = args.batch_size
+
+        def load_batch(i):
+            items = [dataset[j] for j in range(i, min(i + bs, len(dataset)))]
+            return [p for p, _ in items], np.stack([im for _, im in items])
+
+        results = []
+        start = time.time()
+        starts = list(range(0, len(dataset), bs))
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            # bounded prefetch: at most DEPTH letterboxed batches in flight
+            DEPTH = 2
+
+            def batches():
+                pending = [pool.submit(load_batch, s) for s in starts[:DEPTH]]
+                nxt = DEPTH
+                while pending:
+                    fut = pending.pop(0)
+                    if nxt < len(starts):
+                        pending.append(pool.submit(load_batch, starts[nxt]))
+                        nxt += 1
+                    yield fut.result()
+
+            for paths, images in batches():
+                stages = _Stages(device)
+                t0 = time.time()
+                dets, valid = self.infer(model, images, dtype, device, nc,
+                                         stages)
+                dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+                t1 = time.time()
+                ms = dict(zip(STAGES, stages.elapsed_ms()))
+                self.batch_s.append(t1 - t0)
+                self.stage_ms.append(ms)
+
+                boxes = [dets[b][valid[b]] for b in range(len(paths))]
+                num = sum(len(b) for b in boxes)
+                logger.info("-----------------------------------")
+                logger.info("{}-> {} objects found".format(paths, num))
+                logger.info("Inference time : " + "%10.4g"
+                            % round((ms["forward"] + ms["decode"]) / 1e3, 5))
+                logger.info("Post-processing time : " + "%10.4g"
+                            % round(ms["post_process"] / 1e3, 5))
+                logger.info("-----------------------------------")
+
+                for path, box in zip(paths, boxes):
+                    plot_boxes(path, box, data["names"], args.img_size,
+                               save_folder)
+                    results.append((path, box))
+
+        self.total_s = time.time() - start
+        logger.info("-----------------------------------")
+        logger.info("Total detecting time : " + "%10.4g"
+                    % round(self.total_s, 5))
+        logger.info("-----------------------------------")
+        return results
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--weight_path", type=str, default="")
+    parser.add_argument("--mode", default="csl", nargs="?",
+                        choices=["csl", "kfiou"])
+    parser.add_argument("--ver", default="yolov5", nargs="?",
+                        choices=["yolov4", "yolov5", "yolov7"])
+    parser.add_argument("--conf_thres", type=float, default=0.7)
+    parser.add_argument("--nms_thres", type=float, default=0.2)
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--img_size", type=int, default=608)
+    parser.add_argument("--data", type=str, default="")
+    parser.add_argument("--hyp", type=str, default="")
+    parser.add_argument("--ext", type=str, default="png",
+                        choices=["png", "jpg"])
+    parser.add_argument("--dtype", default="f32",
+                        choices=["f32", "bf16", "int8"],
+                        help="deployed compute dtype (decode stays f32; "
+                             "int8 is not ported yet)")
+    parser.add_argument("--packed_input", action="store_true",
+                        help="accepted for the JAX CLI's surface; the S2D "
+                             "input packing is a TPU layout trick and is "
+                             "ignored here")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: cuda (default), cuda:N or cpu")
+    return parser
+
+
+if __name__ == "__main__":
+    args = build_parser().parse_args()
+    print(args)
+    Detect(args).detect()

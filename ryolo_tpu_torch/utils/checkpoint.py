@@ -1,0 +1,170 @@
+"""Reference ``.pth`` layout and the JAX-tree -> state_dict bridge.
+
+Port of ``ryolo_tpu/utils/checkpoint.py`` (``state_dict_layout`` :166,
+``torch_name_to_flax`` :186, ``export_state_dict`` :302, ``load_pth``
+:337).  The port's module attribute names ARE the reference ``.pth``
+names, so a reference checkpoint, or the JAX weights turned into a
+state_dict by :func:`state_dict_from_flax`, load with
+``model.load_state_dict(sd, strict=True)`` and no converter.
+
+Only the YOLOv7 layout is here; v4/v5 come with their blocks
+(ROADMAP §A2).
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# (child, spec) tables in torch registration order; spec 'C' = ConvBlock
+# with BN, 'Cb' = biased head conv, 'B' = bare BN, 'W' = bare conv weight,
+# 'I' = implicit prior (``ryolo_tpu/utils/checkpoint.py:33-136``).
+
+
+def _elan():
+    return [(f"cv{i}", "C") for i in range(1, 8)]
+
+
+def _maxconv():
+    return [("cv1", "C"), ("cv2", "C"), ("cv3", "C")]
+
+
+def _repconv():
+    # the v7 neck RepConvs all change width, so no rbr_identity branch
+    return [("rbr_dense.0", "W"), ("rbr_dense.1", "B"),
+            ("rbr_1x1.0", "W"), ("rbr_1x1.1", "B")]
+
+
+_BACKBONES = {
+    "yolov7": [
+        ("cbs0", "C"), ("cbs1", "C"), ("cbs2", "C"), ("cbs3", "C"),
+        ("elan1", _elan()), ("mc1", _maxconv()), ("elan2", _elan()),
+        ("mc2", _maxconv()), ("elan3", _elan()), ("mc3", _maxconv()),
+        ("elan4", _elan()), ("spp", [(f"cv{i}", "C") for i in range(1, 8)]),
+    ],
+}
+
+_NECKS = {
+    "yolov7": [
+        ("conv1", "C"), ("elan1", _elan()), ("conv2", "C"), ("elan2", _elan()),
+        ("conv3", "C"), ("conv4", "C"),
+        ("mc1", _maxconv()), ("elan3", _elan()),
+        ("mc2", _maxconv()), ("elan4", _elan()),
+        ("repVgg1", _repconv()), ("ia1", "I"), ("conv5", "Cb"), ("im1", "I"),
+        ("repVgg2", _repconv()), ("ia2", "I"), ("conv6", "Cb"), ("im2", "I"),
+        ("repVgg3", _repconv()), ("ia3", "I"), ("conv7", "Cb"), ("im3", "I"),
+    ],
+}
+
+
+def _check_ver(ver: str) -> None:
+    if ver not in _BACKBONES:
+        raise NotImplementedError(
+            f"{ver}: only yolov7 is ported so far; v4/v5 come with "
+            "ROADMAP §A2")
+
+
+def _expand(prefix: str, spec, out: List[Tuple[str, str]]):
+    if spec == "C":
+        out += [(f"{prefix}.conv.0.weight", "conv_w"),
+                (f"{prefix}.conv.1.weight", "bn_w"),
+                (f"{prefix}.conv.1.bias", "bn_b"),
+                (f"{prefix}.conv.1.running_mean", "bn_m"),
+                (f"{prefix}.conv.1.running_var", "bn_v"),
+                (f"{prefix}.conv.1.num_batches_tracked", "bn_n")]
+    elif spec == "Cb":
+        out += [(f"{prefix}.conv.0.weight", "conv_w"),
+                (f"{prefix}.conv.0.bias", "conv_b")]
+    elif spec == "B":
+        out += [(f"{prefix}.weight", "bn_w"), (f"{prefix}.bias", "bn_b"),
+                (f"{prefix}.running_mean", "bn_m"),
+                (f"{prefix}.running_var", "bn_v"),
+                (f"{prefix}.num_batches_tracked", "bn_n")]
+    elif spec == "W":
+        out.append((f"{prefix}.weight", "conv_w"))
+    elif spec == "I":
+        out.append((f"{prefix}.implicit", "implicit"))
+    else:
+        for child, sub in spec:
+            _expand(f"{prefix}.{child}", sub, out)
+
+
+def state_dict_layout(ver: str) -> List[Tuple[str, str]]:
+    """Ordered reference state_dict entries ``(name, kind)`` for ``ver``."""
+    _check_ver(ver)
+    out: List[Tuple[str, str]] = []
+    for name, spec in _BACKBONES[ver]:
+        _expand(f"backbone.{name}", spec, out)
+    for name, spec in _NECKS[ver]:
+        _expand(f"neck.{name}", spec, out)
+    return out
+
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+
+
+def torch_name_to_flax(name: str):
+    """Map a state_dict name to ``(collection, path, transform)`` of the
+    JAX tree; ``collection`` None means no JAX counterpart
+    (``num_batches_tracked``), ``transform`` is 'conv', 'implicit' or None.
+    """
+    parts = name.split(".")
+    tail = parts[-1]
+    if tail == "num_batches_tracked":
+        return None, (), None
+    if tail == "implicit":
+        return "params", tuple(parts[:-1]) + ("implicit",), "implicit"
+    if len(parts) >= 3 and parts[-3] in ("rbr_dense", "rbr_1x1"):
+        base = tuple(parts[:-3])
+        branch = "dense" if parts[-3] == "rbr_dense" else "px"
+        if parts[-2] == "0":
+            return "params", base + (f"{branch}_conv", "kernel"), "conv"
+        coll, leaf = _BN_LEAVES[tail]
+        return coll, base + (f"{branch}_bn", leaf), None
+    if len(parts) >= 3 and parts[-3] == "conv" and parts[-2] in ("0", "1"):
+        base = tuple(parts[:-3])
+        if parts[-2] == "0":
+            if tail == "weight":
+                return "params", base + ("conv", "kernel"), "conv"
+            return "params", base + ("conv", "bias"), None
+        coll, leaf = _BN_LEAVES[tail]
+        return coll, base + ("bn", leaf), None
+    raise KeyError(f"Unrecognized reference state_dict entry: {name}")
+
+
+def _tree_get(tree: Mapping, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def state_dict_from_flax(variables: Mapping, ver: str):
+    """JAX variables (nested dicts of numpy arrays) -> reference-ordered
+    state_dict: HWIO kernels become OIHW, ``(1,1,1,C)`` implicit priors
+    become ``(1,C,1,1)``, and ``num_batches_tracked`` is zero."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out = collections.OrderedDict()
+    for name, kind in state_dict_layout(ver):
+        if kind == "bn_n":
+            out[name] = torch.zeros((), dtype=torch.long)
+            continue
+        coll, path, transform = torch_name_to_flax(name)
+        arr = np.asarray(_tree_get(params if coll == "params" else stats,
+                                   path))
+        if transform == "conv":
+            arr = arr.transpose(3, 2, 0, 1)
+        elif transform == "implicit":
+            arr = arr.transpose(0, 3, 1, 2)
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def load_pth(path: str):
+    """A reference-format state_dict, on the CPU (tensors only)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
