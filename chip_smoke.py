@@ -9,28 +9,40 @@ Phases, each reported on its own lines:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 flags (both off: every float32 number here is float32);
-2. build: every CUDA kernel of the port from ``ryolo_tpu_torch/ops/csrc``;
+2. build: every CUDA kernel of the port from ``ryolo_tpu_torch/ops/csrc``,
+   one ``nvcc`` per source, started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it plus probes, and their times;
-4. main path: YOLOv7-CSL, nc = 16, seeded random weights, deploy-fused,
+   the shapes its path gives it plus probes, and their times;
+4. detect path: YOLOv7-CSL, nc = 16, seeded random weights, deploy-fused,
    f32, 800 px, batch 8, driven through ``ryolo_tpu_torch.detect.Detect``
    on a folder of synthetic images at the CLI default (conf 0.7, iou 0.2)
    and at eval load (conf 0.001, iou 0.65), with the kernel launches, and
    once more at eval load in bf16;
 5. card against CPU at 256 px, batch 2: fused head maps, and equal keep
-   sets from post-processing on the card (kernel) and on the CPU (plain).
+   sets from post-processing on the card (kernel) and on the CPU (plain);
+6. training path: a synthetic DOTA split, YOLOv7-CSL at full width from
+   ``weights_init_normal``, the port's spec loader at 800 px, batch 8,
+   with and without the device tile bank, steps through
+   ``Trainer.train_step_rendered`` (device-side augmentation with the warp
+   kernel), warm-up and accumulation as the JAX ``train.py`` sets them;
+7. card against CPU, training, at 256 px, batch 2: the same spec batch
+   rendered on the card (kernel) and on the CPU (plain), then one SGD step
+   from the same weights on each.
 
 Then one JSON line with every kernel's numbers and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
 refuses to run without a CUDA device.
 """
 
+import copy
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from argparse import Namespace
 
 import numpy as np
@@ -42,6 +54,7 @@ NC = 16
 IMG, BATCH, N_IMAGES = 800, 8, 40
 H100_FP32_OPS = 67e12      # FP32 outside the tensor cores, dense
 H100_BYTES_PER_S = 3.35e12  # HBM3
+TRAIN_IMAGES, TRAIN_STEPS, NBS = 64, 7, 64  # NBS: nominal batch, train.py
 
 
 def check(ok, what):
@@ -91,12 +104,15 @@ def phase_device():
 def phase_build():
     from ryolo_tpu_torch.ops import _build
 
+    names = ["rotated_iou", "warp"]
     t = time.perf_counter()
-    _build.build(["rotated_iou"])
-    log("build", f"rotated_iou built in {time.perf_counter() - t:.3f} s")
-    for line in _build.ptxas_report("rotated_iou").splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", "ptxas: " + line.strip())
+    _build.build(names)
+    log("build", f"{', '.join(names)} built in "
+        f"{time.perf_counter() - t:.3f} s")
+    for name in names:
+        for line in _build.ptxas_report(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log("build", f"ptxas {name}: " + line.strip())
 
 
 def iou_bounds_ok(got, want):
@@ -165,6 +181,370 @@ def phase_kernels():
     log("kernels", "probes ok: diagonal 1, theta vs theta+180 1, zero-size "
         f"rows 0, class-offset centres max_abs_err {err:.3e}")
     return dict(max_abs_err=max_err, **rep)
+
+
+def spec_affines(rng, b, s):
+    """Inverse affines as the spec builder draws them for a 2s mosaic canvas
+    (configs/hyp.yaml: rotate 45, scale 0.5, translate 0.1;
+    ``BaseDataset._warp_params``)."""
+    th = np.deg2rad(rng.uniform(-45, 45, b))
+    sc = rng.uniform(0.5, 1.6, b)
+    shift = rng.uniform(0.2, 0.4, (b, 2)) * s
+    minv = np.zeros((b, 2, 3), np.float32)
+    minv[:, 0, 0] = minv[:, 1, 1] = np.cos(th) / sc
+    minv[:, 0, 1], minv[:, 1, 0] = -np.sin(th) / sc, np.sin(th) / sc
+    for k in range(b):
+        minv[k, :, 2] = s - minv[k, :, :2] @ shift[k]
+    return minv
+
+
+def warp_coords(minv, s):
+    """Canvas coordinates (cx, cy) of every output pixel, as the kernel
+    computes them."""
+    o = torch.arange(s, dtype=torch.float32, device=minv.device)
+    m = minv.reshape(-1, 6)[:, :, None, None]
+    cx = m[:, 0] * o[None, None, :] + m[:, 1] * o[None, :, None] + m[:, 2]
+    cy = m[:, 3] * o[None, None, :] + m[:, 4] * o[None, :, None] + m[:, 5]
+    return cx, cy
+
+
+def warp_bound(minv, c, s, active):
+    """Least time for the warp: bytes over the memory rate, against its
+    FP32 operations over the FP32 rate.  The bytes are the affines, the
+    flags, each canvas cell that a tap of an in-canvas pixel of an active
+    spec reads, once, and each output value of an active spec written once
+    as a byte (the values are integers 0..255; nothing reads the inactive
+    slots).  Also returns the bound with the kernel's own output, float32
+    for every spec, which the render keeps because it fuses the cast the
+    tail needs."""
+    from ryolo_tpu_torch.ops.cuda_warp import OPS_PER_PIXEL
+
+    b = minv.shape[0]
+    x0, y0 = (torch.floor(v) for v in warp_coords(minv, s))
+    ok = ((x0 >= -1) & (x0 <= c - 2) & (y0 >= -1) & (y0 <= c - 2)
+          & (active.reshape(b, 1, 1) != 0))
+    touched = torch.zeros(b, c + 1, c + 1, dtype=torch.bool,
+                          device=minv.device)
+    bi = torch.arange(b, device=minv.device)[:, None, None].expand_as(ok)[ok]
+    bx, by = x0[ok].long() + 1, y0[ok].long() + 1
+    for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        touched[bi, bx + dx, by + dy] = True
+    cells = int(touched[:, :c, :c].sum())  # index c is PAD, never read
+    n_active = int((active != 0).sum())
+    read = 3 * cells + minv.numel() * 4 + b * 4
+    t_ops = OPS_PER_PIXEL * int(ok.sum()) / H100_FP32_OPS
+    t_bytes = (read + n_active * 3 * s * s) / H100_BYTES_PER_S
+    t_carrier = (read + b * 3 * s * s * 4) / H100_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", cells,
+            max(t_carrier, t_ops) * 1e3)
+
+
+def grid_sample_call(canvas, minv, s):
+    """``grid_sample`` on the same canvases and affines (bilinear, float32
+    canvas, zero padding): the nearest library call, not bit-equal (no
+    rounding, other padding)."""
+    import torch.nn.functional as F
+
+    c = canvas.shape[2]
+    cx, cy = warp_coords(minv, s)
+    # input (b, 3, X, Y): grid x runs along Y (buffer cy + 1), grid y along X
+    grid = torch.stack([(cy + 1) * (2.0 / (c - 1)) - 1,
+                        (cx + 1) * (2.0 / (c - 1)) - 1], -1)
+    canvas_f = canvas.float()
+    return lambda: F.grid_sample(canvas_f, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
+
+
+def phase_warp_kernel():
+    from ryolo_tpu_torch.ops.cuda_warp import warp_canvas
+    from ryolo_tpu_torch.ops.warp import warp_canvas_plain
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s64, c64 = 64, 130
+    d = 3.03 / 2 * 0.999
+    probes = np.array([
+        [[1, 0, 0], [0, 1, 0]],                       # identity
+        [[1, 0, 9000], [0, 1, -9000]],                # all PAD
+        [[1, 0, -31.5], [0, 1, c64 - 32.5]],          # canvas edge
+        [[0.5, 0.5, -1.0], [-0.5, 0.5, c64 - 33.0]],  # canvas edge
+        [[d, d, 20.2], [-d, d, 40.7]],                # TPU span bound
+        [[2.9, -2.7, 60.0], [2.6, 3.1, -40.0]],       # |row|_1 ~5.7
+    ], np.float32)
+    path_b = BATCH + max(1, -(-BATCH * 2 // 5))       # B + E = 12
+    cases = [
+        ("path 12x800", IMG, spec_affines(rng, path_b, IMG),
+         np.array([1] * BATCH + [1, 0, 1, 0], np.int32)),
+        ("spec 4x64", s64, spec_affines(rng, 4, s64), np.ones(4, np.int32)),
+        ("probes 6x64", s64, probes, np.ones(len(probes), np.int32)),
+    ]
+    max_err, rep = 0.0, None
+    for label, s, minv_np, act_np in cases:
+        b, c = len(minv_np), 2 * s + 2
+        canvas = torch.randint(0, 256, (b, 3, c, c), generator=gen,
+                               device=dev, dtype=torch.uint8)
+        minv = torch.from_numpy(minv_np).to(dev)
+        active = torch.from_numpy(act_np).to(dev)
+        got = warp_canvas(canvas, minv, s, active)
+        torch.cuda.synchronize()
+        want = warp_canvas_plain(canvas, minv, s, active)
+        diff = (got - want).abs()
+        n_diff, err = int((diff > 0).sum()), float(diff.max())
+        check(err <= 1.0 and n_diff <= 1e-3 * diff.numel(),
+              f"warp kernel vs plain, {label}: {n_diff} differ, max {err}")
+        check(bool((got[active == 0] == 114.0).all()), "inactive not PAD")
+        max_err = max(max_err, err)
+        msg = (f"warp {label}: {n_diff} of {diff.numel()} values differ, "
+               f"max_abs_err {err:.1f}")
+        if label.startswith("probes"):
+            check(bool((got[1] == 114.0).all()), "off-canvas probe not PAD")
+            log("kernels", msg + " (identity, off-canvas all PAD, canvas "
+                "edges, |row|_1 at 3.03 and at ~5.7)")
+            continue
+        ms = cuda_ms(lambda: warp_canvas(canvas, minv, s, active), 50)
+        plain_ms = cuda_ms(lambda: warp_canvas_plain(canvas, minv, s,
+                                                     active), 5)
+        lib_ms = cuda_ms(grid_sample_call(canvas, minv, s), 20)
+        bound, by, cells, carrier = warp_bound(minv, c, s, active)
+        log("kernels", f"{msg}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+            f" grid_sample {lib_ms:.4f} ms (float32 canvas, no rounding, "
+            f"zero padding: not bit-equal), bound {bound:.5f} ms ({by}; "
+            f"{cells} canvas cells read, uint8 output of the "
+            f"{int((active != 0).sum())} active specs); with the kernel's "
+            f"float32 output for all {b} specs {carrier:.5f} ms")
+        if label.startswith("path"):
+            rep = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       library_ms=lib_ms)
+    return dict(max_abs_err=max_err, **rep)
+
+
+def write_dota_split(root, names, rng):
+    """A DOTA-format split: ``images/*.png`` (1024 px) and
+    ``annfiles/*.txt`` rows ``x1 y1 .. x4 y4 class-name difficulty``."""
+    import cv2
+
+    for d in ("images", "annfiles"):
+        os.makedirs(os.path.join(root, d))
+    for i in range(TRAIN_IMAGES):
+        img = rng.integers(0, 70, (1024, 1024, 3), dtype=np.uint8)
+        rows = []
+        for _ in range(int(rng.integers(8, 30))):
+            rect = ((float(rng.uniform(60, 964)), float(rng.uniform(60, 964))),
+                    (float(rng.uniform(12, 120)), float(rng.uniform(12, 60))),
+                    float(rng.uniform(-90, 90)))
+            pts = cv2.boxPoints(rect)
+            cv2.fillPoly(img, [pts.astype(np.int32)],
+                         [int(c) for c in rng.integers(60, 255, 3)])
+            name = names[int(rng.integers(0, NC))].replace(" ", "-")
+            rows.append(" ".join(f"{v:.1f}" for v in pts.reshape(-1))
+                        + f" {name} 0")
+        cv2.imwrite(os.path.join(root, "images", f"P{i:04d}.png"), img)
+        with open(os.path.join(root, "annfiles", f"P{i:04d}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+
+
+def train_model(cfg, device):
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.train import weights_init_normal
+
+    model = Yolo(NC, cfg["model"], mode="csl", ver="yolov7")
+    weights_init_normal(model, torch.Generator().manual_seed(SEED))
+    return model.to(device)
+
+
+def train_loss_fn(cfg, device):
+    from ryolo_tpu_torch.nn import STRIDES, make_anchors
+    from ryolo_tpu_torch.train import csl_loss_fn
+
+    return csl_loss_fn(make_anchors(STRIDES, cfg["model"]["anchors"]), NC,
+                       cfg["hyp"], device)
+
+
+def phase_train(split, names, cfg):
+    import ryolo_tpu_torch.data.device_augment as da
+    from ryolo_tpu_torch.data.loader import load_data
+    from ryolo_tpu_torch.ops import cuda_warp
+    from ryolo_tpu_torch.train import Trainer, one_cycle
+
+    hyp, dev = cfg["hyp"], torch.device("cuda")
+    lr0, epochs = 0.01, 80  # the train CLI's defaults
+    trainer = Trainer(train_model(cfg, dev), train_loss_fn(cfg, dev), "SGD",
+                      lr0)
+    lf = one_cycle(1, hyp["lrf"], epochs)
+
+    # CUDA events around each render stage and the step (wrapping the
+    # module functions; the launch count stays the wrapper's)
+    spans = {}
+
+    def timed(key, fn):
+        def wrapped(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            spans.setdefault(key, []).append((s, e))
+            return out
+        return wrapped
+
+    saved = {k: getattr(da, k) for k in ("_canvases", "warp_canvas",
+                                         "_mix_flip_tail")}
+    da._canvases = timed("paste_hsv", da._canvases)
+    da.warp_canvas = timed("kernel", da.warp_canvas)
+    da._mix_flip_tail = timed("mix_flip", da._mix_flip_tail)
+    trainer.train_step = timed("step", trainer.train_step)
+
+    results = {}
+    cuda_warp.LAUNCHES["warp"] = 0
+    try:
+        for cached in (False, True):
+            mode = "tile bank" if cached else "pixel specs"
+            dataset, loader = load_data(
+                split, names, "DOTA", hyp, True, img_size=IMG,
+                batch_size=BATCH, augment=True, shuffle=True,
+                drop_last=True, seed=SEED, workers=4, device_augment=True,
+                cache_images=True, device_cache=cached)
+            bank = None
+            if cached:
+                t = time.perf_counter()
+                bank = torch.from_numpy(dataset.build_tile_bank()).to(dev)
+                log("train", f"tile bank {tuple(bank.shape)} int32, "
+                    f"{bank.numel() * 4 / 1e6:.1f} MB, built and uploaded "
+                    f"in {time.perf_counter() - t:.3f} s")
+            iters = len(loader)
+            check(iters >= TRAIN_STEPS, iters)
+            nw = max(int(epochs * iters * hyp["warmup_prop"]), 1000)
+            torch.cuda.reset_peak_memory_stats()
+            rows, it, epoch = [], iter(loader), 0
+            for step in range(1, TRAIN_STEPS + 1):
+                t0 = time.perf_counter()
+                batch = next(it)
+                wait = time.perf_counter() - t0
+                # warm-up of the lr and the accumulation (train.py:210-221)
+                acc = max(1, int(np.interp(step, [0, nw],
+                                           [1, NBS / BATCH]).round()))
+                lr = float(np.interp(step, [0, nw], [0.0, lr0 * lf(epoch)]))
+                spans.clear()
+                # the step must not wait for the device: PyTorch reports
+                # every synchronizing call it makes while this mode is on
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        _, items = trainer.train_step_rendered(
+                            batch, bank, lr, acc, BATCH)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                syncs = sum("synchroniz" in str(w.message) for w in caught)
+                check(step == 1 or syncs == 0,
+                      f"{syncs} host syncs in step {step}: "
+                      + "; ".join(str(w.message)[:200] for w in caught))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                vals = {k: v.item() for k, v in items.items()}
+                check(all(math.isfinite(v) for v in vals.values()), vals)
+                row = {k: sum(s.elapsed_time(e) for s, e in v)
+                       for k, v in spans.items()}
+                row.update(wait=wait * 1e3, wall=wall * 1e3,
+                           ips=BATCH / wall,
+                           mem=torch.cuda.max_memory_allocated() / 2 ** 30)
+                rows.append(row)
+                layout = ("bank rows" if "spec_tile_idx" in batch
+                          else "pixel tiles")
+                log("train", f"{mode} step {step} ({layout}, lr {lr:.3g}, "
+                    f"accumulate {acc}, host syncs {syncs}): " + ", ".join(
+                        f"{k} {v:.4g}" for k, v in vals.items())
+                    + "; ms " + ", ".join(
+                        f"{k} {row[k]:.3f}" for k in
+                        ("paste_hsv", "kernel", "mix_flip", "step", "wait",
+                         "wall")) + f"; {row['ips']:.2f} images/s; peak "
+                    f"{row['mem']:.2f} GiB")
+                if step == 1:  # its one-off allocations stay out of the peak
+                    torch.cuda.reset_peak_memory_stats()
+            del it
+            steady = {k: float(np.mean([r[k] for r in rows[1:]]))
+                      for k in rows[0]}
+            steady["render"] = (steady["paste_hsv"] + steady["kernel"]
+                                + steady["mix_flip"])
+            log("train", f"{mode}, steps 2..{TRAIN_STEPS} mean: render "
+                f"{steady['render']:.3f} ms (paste + HSV "
+                f"{steady['paste_hsv']:.3f}, kernel {steady['kernel']:.3f}, "
+                f"mix/flip {steady['mix_flip']:.3f}), forward + loss + "
+                f"backward + optimizer {steady['step']:.3f} ms, host wait "
+                f"for the loader {steady['wait']:.3f} ms, step wall "
+                f"{steady['wall']:.3f} ms, {steady['ips']:.2f} images/s, "
+                f"peak {max(r['mem'] for r in rows[1:]):.2f} GiB")
+            results[mode] = steady
+    finally:
+        for k, v in saved.items():
+            setattr(da, k, v)
+    launches = cuda_warp.LAUNCHES["warp"]
+    check(launches > 0, "warp kernel never launched in training")
+    log("train", f"warp launches {launches} over {2 * TRAIN_STEPS} steps")
+    return dict(launches=launches, results=results)
+
+
+def phase_train_card_vs_cpu(split, names, cfg):
+    from ryolo_tpu_torch.data.device_augment import render_batch
+    from ryolo_tpu_torch.data.loader import load_data
+    from ryolo_tpu_torch.train import Trainer
+
+    hyp, lr = cfg["hyp"], 0.01
+    _, loader = load_data(split, names, "DOTA", hyp, True, img_size=256,
+                          batch_size=2, augment=True, shuffle=False,
+                          drop_last=True, seed=SEED + 4, workers=2,
+                          device_augment=True)
+    batch = next(iter(loader))
+    got = render_batch(batch, 2, device="cuda").cpu()
+    want = render_batch(batch, 2, device="cpu")
+    diff = (torch.round(got * 255) - torch.round(want * 255)).abs()
+    n_diff, err = int((diff > 0).sum()), float(diff.max())
+    check(err <= 1 and n_diff <= 1e-3 * diff.numel(), (n_diff, err))
+    log("card_vs_cpu", f"render at 256 px, batch 2 (+{len(batch['spec_minv']) - 2}"
+        f" partner slots): {n_diff} of {diff.numel()} values differ, max "
+        f"{err:.0f}/255")
+
+    cpu = Trainer(train_model(cfg, "cpu"), train_loss_fn(cfg, "cpu"), "SGD",
+                  lr)
+    card = Trainer(copy.deepcopy(cpu.model).cuda(), train_loss_fn(cfg, "cuda"),
+                   "SGD", lr)
+    before = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    _, items_cpu = cpu.train_step_rendered(batch, None, lr, 1, 2)
+    _, items_card = card.train_step_rendered(batch, None, lr, 1, 2)
+    worst = max(abs(items_card[k].item() / items_cpu[k].item() - 1)
+                for k in items_cpu)
+    check(worst <= 1e-3, {k: (items_cpu[k].item(), items_card[k].item())
+                          for k in items_cpu})
+    got_sd = {k: v.cpu() for k, v in card.model.state_dict().items()}
+    stat_err, upd, d_gots, d_wants = 0.0, [], [], []
+    for k, w in cpu.model.state_dict().items():
+        g = got_sd[k]
+        if k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith(("running_mean", "running_var")):
+            stat_err = max(stat_err, ((g - w).abs().max()
+                                      / w.abs().max()).item())
+            continue
+        dw = (w - before[k]).double().reshape(-1)
+        dg = (g - before[k]).double().reshape(-1)
+        upd.append(((dg - dw).norm() / dw.norm()).item())
+        d_gots.append(dg)
+        d_wants.append(dw)
+    dg, dw = torch.cat(d_gots), torch.cat(d_wants)
+    total = ((dg - dw).norm() / dw.norm()).item()
+    # bounds: statistics 1e-3 of the tensor's largest entry; the update's
+    # error as the L2 norm over the CPU update's, 0.05 per tensor and 0.01
+    # over all parameters (cuDNN's and the CPU's convolution sums differ in
+    # order, and the BatchNorms amplify it)
+    check(stat_err <= 1e-3, f"BN statistics off by {stat_err}")
+    check(max(upd) <= 0.05 and total <= 0.01, (max(upd), total))
+    log("card_vs_cpu", f"one SGD step at 256 px, batch 2: loss items within "
+        f"{worst:.2e} (rtol 1e-3); BN running statistics within "
+        f"{stat_err:.2e} of each tensor's largest entry (bound 1e-3); "
+        f"parameter update error (L2 over the CPU update's L2) "
+        f"{max(upd):.2e} in the worst tensor (bound 0.05), {total:.2e} over "
+        "all parameters (bound 0.01)")
 
 
 def init_weights(model, gen):
@@ -375,11 +755,18 @@ def main():
     phase_device()
     phase_build()
     kern = phase_kernels()
+    warp = phase_warp_kernel()
     cfg = load_yaml(os.path.join(REPO, "configs", "hyp.yaml"))
+    names = load_yaml(os.path.join(REPO, "configs", "DOTA.yaml"))["names"]
     model = build_model(cfg)
     with tempfile.TemporaryDirectory() as tmp:
         main_res = phase_main_path(tmp, model)
-    phase_card_vs_cpu(model)
+        phase_card_vs_cpu(model)
+        del model
+        split = os.path.join(tmp, "dota_train")
+        write_dota_split(split, names, np.random.default_rng(SEED + 2))
+        train = phase_train(split, names, cfg)
+        phase_train_card_vs_cpu(split, names, cfg)
 
     launches = sum(r["launches"] for r in main_res.values())
     print(json.dumps({"kernels": [{
@@ -389,7 +776,14 @@ def main():
         "launches": launches, "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "warp", "route": "cuda",
+        "source": "ryolo_tpu_torch/ops/csrc/warp.cu",
+        "replaces": "ryolo_tpu/ops/pallas_warp.py:107",
+        "launches": train["launches"], "max_abs_err": warp["max_abs_err"],
+        "ms": warp["ms"], "plain_ms": warp["plain_ms"],
+        "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],
+        "library_ms": warp["library_ms"]}]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,2 @@
-"""Host-side image loading for detect."""
+"""Host data (datasets, render specs, the spec loader) and device-side
+augmentation."""

@@ -41,8 +41,40 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2.0, mode="nearest")
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's running statistics
+    (``ryolo_tpu/nn/fused_bn.py:69-71,142-146``).
+
+    In training a batch is normalised by its biased variance, as in
+    ``nn.BatchNorm2d``, and the running variance moves toward that biased
+    variance, ``0.9·running + 0.1·batch``; ``nn.BatchNorm2d`` moves it toward
+    the unbiased one, n/(n-1) larger (14% at n = 8).  Buffer names are
+    ``nn.BatchNorm2d``'s, so the ``.pth`` layout is unchanged; the backward
+    is autograd's.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        decayed = (1.0 - self.momentum) * self.running_var
+        # batch_norm's own update lands in a scratch copy (autograd may keep
+        # the variance tensor it was given, so that one is not written
+        # again): decayed + m·var·n/(n-1)
+        scratch = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, scratch, self.weight,
+                         self.bias, True, self.momentum, self.eps)
+        with torch.no_grad():
+            # rescale the new part per channel, with no further pass over
+            # the activation
+            self.running_var.copy_(
+                decayed + (scratch - decayed) * ((n - 1) / n))
+        return y
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 class ConvBlock(nn.Module):
@@ -57,6 +89,8 @@ class ConvBlock(nn.Module):
         super().__init__()
         layers = [nn.Conv2d(c1, c2, k, s, (k - 1) // 2,
                             bias=bias or (bn and deploy))]
+        if bias and not deploy:
+            nn.init.zeros_(layers[0].bias)  # a head conv: flax's zero init
         if bn and not deploy:
             layers.append(_bn(c2))
         self.conv = nn.Sequential(*layers)

@@ -93,3 +93,90 @@ def test_nms_on_card_equals_cpu(cuda):
                                       max_keep=100)
     assert torch.equal(o_cpu, o_gpu.cpu())
     assert torch.equal(k_cpu, k_gpu.cpu())
+
+
+# -- the canvas warp kernel (B2) --------------------------------------------
+# Bound: tests/test_pallas_warp.py:32-36 (max |diff| <= 1, at most 1e-3 of
+# values differ); the kernel rounds as the plain version does, so exact
+# agreement is expected.
+
+def _warp_inputs(b, s, seed):
+    rng = np.random.default_rng(seed)
+    c = 2 * s + 2
+    canvas = torch.from_numpy(rng.integers(0, 256, (b, 3, c, c),
+                                           dtype=np.uint8))
+    th = rng.uniform(-np.pi / 4, np.pi / 4, b)
+    sc = rng.uniform(0.5, 1.6, b)
+    minv = np.zeros((b, 2, 3), np.float32)
+    minv[:, 0, 0] = np.cos(th) / sc
+    minv[:, 0, 1] = -np.sin(th) / sc
+    minv[:, 1, 0] = np.sin(th) / sc
+    minv[:, 1, 1] = np.cos(th) / sc
+    minv[:, :, 2] = rng.uniform(-0.3 * s, 2.2 * s, (b, 2))
+    minv[0] = [[1, 0, 0], [0, 1, 0]]                       # identity
+    if b > 1:
+        minv[1] = [[1, 0, 9000], [0, 1, -9000]]            # off the canvas
+    if b > 2:
+        minv[2] = [[2.9, -2.7, 60.0], [2.6, 3.1, -40.0]]   # no span bound
+    if b > 3:
+        minv[3] = [[1, 0, -31.5], [0, 1, c - 32.5]]        # canvas edge
+    active = torch.from_numpy((np.arange(b) % 5 != 4).astype(np.int32))
+    return canvas, torch.from_numpy(minv), active
+
+
+def _warp_equal(got, want):
+    diff = (got.cpu() - want.cpu()).abs()
+    assert diff.max() <= 1.0, diff.max()
+    assert (diff > 0).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("b,s", [(12, 800), (6, 64), (3, 33), (1, 1)])
+def test_warp_kernel_matches_plain_version(cuda, b, s):
+    from ryolo_tpu_torch.ops.cuda_warp import LAUNCHES, warp_canvas
+
+    canvas, minv, active = _warp_inputs(b, s, b * 1000 + s)
+    before = LAUNCHES["warp"]
+    got = warp_canvas(canvas.to(cuda), minv.to(cuda), s, active.to(cuda))
+    torch.cuda.synchronize()
+    assert LAUNCHES["warp"] == before + 1
+    want = warp_canvas(canvas, minv, s, active)
+    _warp_equal(got, want)
+    assert (got[active == 0] == 114.0).all()
+
+
+def test_warp_kernel_raises_instead_of_falling_back(cuda):
+    from ryolo_tpu_torch.ops.cuda_warp import warp_canvas
+
+    canvas, minv, active = _warp_inputs(2, 16, 0)
+    with pytest.raises(ValueError):
+        warp_canvas(canvas.to(cuda), minv, 16)  # mixed devices
+    with pytest.raises(TypeError):
+        warp_canvas(canvas.to(cuda).float(), minv.to(cuda), 16)
+
+
+def test_render_on_card_equals_cpu(cuda):
+    """A spec batch of mosaic-4 layout rendered on the card (kernel) and on
+    the CPU (plain warp): same images."""
+    from ryolo_tpu_torch.data.device_augment import render_batch
+
+    rng = np.random.default_rng(3)
+    s, b, t = 64, 3, 9
+    tiles = rng.integers(0, 1 << 24, (b, t, s, s)).astype(np.int32)
+    region = np.zeros((b, t, 4), np.float32)
+    offset = np.zeros((b, t, 2), np.float32)
+    for k in range(4):
+        x, y = (k & 1) * s, (k >> 1) * s
+        region[:, k] = [x, y, x + s, y + s]
+        offset[:, k] = [x, y]
+    hsv = (1 + rng.uniform(-1, 1, (b, t, 3)) * [0.015, 0.7, 0.4]).astype(
+        np.float32)
+    minv = np.tile(np.array([[1.3, 0.2, 3.0], [-0.2, 1.3, 5.0]], np.float32),
+                   (b, 1, 1))
+    batch = dict(spec_tiles=tiles, spec_region=region, spec_offset=offset,
+                 spec_hsv=hsv, spec_minv=minv,
+                 spec_flip=np.array([[1, 0], [0, 1]], bool),
+                 spec_mix_idx=np.array([2, -1], np.int32),
+                 spec_mix_r=np.array([0.4, 0], np.float32))
+    got = render_batch(batch, 2, device=cuda)
+    want = render_batch(batch, 2, device="cpu")
+    _warp_equal(got * 255.0, want * 255.0)
