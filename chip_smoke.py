@@ -10,14 +10,18 @@ Phases, each reported on its own lines:
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 flags (both off: every float32 number here is float32);
 2. build: every CUDA kernel of the port from ``ryolo_tpu_torch/ops/csrc``,
-   one ``nvcc`` per source, started together;
+   one ``nvcc`` per source, started together, with ptxas's registers and
+   spills;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes its path gives it plus probes, and their times;
+   the shapes its path gives it plus probes, and their times: the pairwise
+   rotated IoU, the NMS mask and scan at 8 x 5000 candidates (thresholds
+   0.2 and 0.65, with far-reject probes), the warp;
 4. detect path: YOLOv7-CSL, nc = 16, seeded random weights, deploy-fused,
    f32, 800 px, batch 8, driven through ``ryolo_tpu_torch.detect.Detect``
    on a folder of synthetic images at the CLI default (conf 0.7, iou 0.2)
-   and at eval load (conf 0.001, iou 0.65), with the kernel launches, and
-   once more at eval load in bf16;
+   and at eval load (conf 0.001, iou 0.65), and once more at eval load in
+   bf16: one ``nms_mask`` and one ``nms_scan`` launch per batch, no
+   pairwise IoU launch, no host sync inside the NMS;
 5. card against CPU at 256 px, batch 2: fused head maps, and equal keep
    sets from post-processing on the card (kernel) and on the CPU (plain);
 6. training path: a synthetic DOTA split, YOLOv7-CSL at full width from
@@ -104,7 +108,7 @@ def phase_device():
 def phase_build():
     from ryolo_tpu_torch.ops import _build
 
-    names = ["rotated_iou", "warp"]
+    names = ["rotated_iou", "rotated_nms", "warp"]
     t = time.perf_counter()
     _build.build(names)
     log("build", f"{', '.join(names)} built in "
@@ -181,6 +185,255 @@ def phase_kernels():
     log("kernels", "probes ok: diagonal 1, theta vs theta+180 1, zero-size "
         f"rows 0, class-offset centres max_abs_err {err:.3e}")
     return dict(max_abs_err=max_err, **rep)
+
+
+def cuda_ms_once(fn):
+    """``fn()`` and its device ms, one call (for the slow plain versions)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def nms_candidates(gen, b, k, n_valid):
+    """Score-sorted candidates as post-processing hands them to the NMS at
+    eval load: 16 per object on average, jittered as neighbouring anchors
+    predict one object (centre by up to 15% of the width, sides by 20%,
+    angle by 10 degrees), objects over an 800 px image with DOTA-like sizes,
+    centres moved by class * 4096 (16 classes); padding last."""
+    def r(*shape):
+        return torch.rand(*shape, generator=gen)
+
+    n_obj = max(1, k // 16)
+    obj = torch.stack([IMG * r(b, n_obj), IMG * r(b, n_obj),
+                       8 + 112 * r(b, n_obj), 8 + 52 * r(b, n_obj),
+                       180 * r(b, n_obj) - 90], -1)
+    cls = torch.randint(0, NC, (b, n_obj), generator=gen).float() * 4096.0
+    pick = torch.randint(0, n_obj, (b, k), generator=gen)
+    boxes = obj.gather(1, pick[..., None].expand(b, k, 5)).clone()
+    boxes[..., :2] += (r(b, k, 2) - 0.5) * 0.3 * boxes[..., 2:3]
+    boxes[..., :2] += cls.gather(1, pick)[..., None]
+    boxes[..., 2:4] *= 0.8 + 0.4 * r(b, k, 2)
+    boxes[..., 4] += 20 * r(b, k) - 10
+    valid = torch.arange(k)[None, :] < torch.tensor(n_valid)[:, None]
+    return boxes, valid
+
+
+def mask_bits(mask, n_rows):
+    """``(B, K, K)`` bits [r, e] of the words the mask kernel writes."""
+    k = mask.shape[1]
+    shifts = torch.arange(64, device=mask.device)
+    bits = ((mask[..., None] >> shifts) & 1).bool().flatten(2)[..., :k]
+    r = torch.arange(k, device=mask.device)
+    return bits & ((r[None, :, None] < n_rows[:, None, None].long())
+                   & (r[None, None, :] // 64 <= r[None, :, None] // 64))
+
+
+def mask_iou(boxes, pairs):
+    """Plain IoU of ``(b, r, e)`` pairs in the mask's orientation: box1 = r
+    across chunks, box1 = e within a chunk."""
+    from ryolo_tpu_torch.ops.rotated_iou import rotated_iou_pairs
+
+    bi, r, e = pairs.unbind(1)
+    same = ((r // 64) == (e // 64))[:, None]
+    return rotated_iou_pairs(torch.where(same, boxes[bi, e], boxes[bi, r]),
+                             torch.where(same, boxes[bi, r], boxes[bi, e]))
+
+
+# The far reject of ryolo_tpu_torch/ops/csrc/rotated_nms.cu (kFarMargin*,
+# kMinSide there; its source argues why it is exact), repeated here for the
+# mask's bound and the probes: circumscribed circles apart by more than
+# FAR_MARGIN_PX + FAR_MARGIN_REL * (|dx| + |dy|), box2's sides both at least
+# MIN_SIDE px.
+FAR_MARGIN_PX = 1.0
+FAR_MARGIN_REL = 1e-3
+MIN_SIDE = 1e-3
+# FP32 operations of the far reject per pair (dx, dy, |dx| + |dy|, the
+# margin, r1 + r2, the reach squared, dx² + dy²); compares left out, as in
+# OPS_PER_PAIR.
+OPS_PER_REJECT = 12
+
+
+def pair_counts(sboxes, svalid, n_rows):
+    """``(valid pairs, pairs the far reject cannot rule out)``: pairs e < r
+    of valid rows that the mask decides (r < n_rows), the reject taken in
+    float32 as the kernel takes it (box2 is e across chunks and r within a
+    chunk).  Python ints; one image at a time, to bound the memory."""
+    n_pairs = n_near = 0
+    for boxes, valid, lim in zip(sboxes, svalid, n_rows.tolist()):
+        boxes, valid = boxes[:lim], valid[:lim]
+        idx = torch.arange(lim, device=boxes.device)
+        pairs = valid[:, None] & valid[None, :] & (idx[:, None] > idx[None, :])
+        same = (idx[:, None] // 64) == (idx[None, :] // 64)  # [r, e]
+        cx, cy, w, h = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+        rad = 0.5 * torch.sqrt(w * w + h * h)
+        big = (w.abs() >= MIN_SIDE) & (h.abs() >= MIN_SIDE)
+        big2 = torch.where(same, big[:, None], big[None, :])
+        dx = cx[:, None] - cx[None, :]
+        dy = cy[:, None] - cy[None, :]
+        reach = ((rad[:, None] + rad[None, :])
+                 + (FAR_MARGIN_PX + FAR_MARGIN_REL * (dx.abs() + dy.abs())))
+        far = big2 & (dx * dx + dy * dy > reach * reach)
+        n_pairs += int(pairs.sum())
+        n_near += int((pairs & ~far).sum())
+    return n_pairs, n_near
+
+
+def mask_ops(n_pairs, n_near, n_rows_total):
+    """FP32 operations the mask needs: the reject on every pair, the clip on
+    the pairs it cannot rule out, and each box's terms."""
+    from ryolo_tpu_torch.ops.cuda_iou import (OPS_PER_COL_BOX, OPS_PER_PAIR,
+                                              OPS_PER_ROW_BOX)
+
+    return (n_pairs * OPS_PER_REJECT + n_near * OPS_PER_PAIR
+            + n_rows_total * (OPS_PER_ROW_BOX + OPS_PER_COL_BOX))
+
+
+def scan_words(keep, n_rows, max_keep):
+    """Mask words the scan reads: (R + 1) for each decided row of each chunk
+    R it visits, and it visits chunks until ``max_keep`` rows are kept or
+    ``n_rows`` is reached."""
+    b, k = keep.shape
+    nw = -(-k // 64)
+    kept = torch.nn.functional.pad(keep.long(), (0, nw * 64 - k))
+    kept = kept.view(b, nw, 64).sum(2)
+    before = torch.cumsum(kept, 1) - kept  # kept before chunk R
+    chunk = torch.arange(nw, device=keep.device)
+    rows = (n_rows[:, None].long() - chunk * 64).clamp(0, 64)
+    visited = (before < max_keep) & (rows > 0)
+    return int((visited * rows * (chunk + 1)).sum())
+
+
+def reject_probes():
+    """Pairs where the far reject must not change a bit: circles exactly at
+    the margin and just inside it (squares with corners pointing at each
+    other, and wide boxes end to end), touching boxes, an overlap under
+    1e-4 px, identical boxes, theta against theta + 180; near 0 and at
+    class 15's offset.  Each pair sits in one chunk (rows 0..31) and across
+    two (first boxes from row 96, second ones from row 128), among far
+    fillers.  ``(1, 144, 5)``."""
+    def at_margin(w, h, theta, inside):
+        d = (float(np.hypot(w, h)) + FAR_MARGIN_PX) / (1 - FAR_MARGIN_REL)
+        return [(0, 0, w, h, theta), (d - inside, 0, w, h, theta)]
+
+    pairs = [at_margin(10, 10, 45, 0), at_margin(10, 10, 45, 0.01),
+             at_margin(30, 8, 0, 0), at_margin(30, 8, 0, 0.01),
+             [(0, 0, 10, 10, 0), (10, 0, 10, 10, 0)],
+             [(0, 0, 10, 10, 0), (10 - 5e-5, 0, 10, 10, 0)],
+             [(0, 0, 20, 8, 30), (0, 0, 20, 8, 30)],
+             [(0, 0, 20, 8, 30), (0, 0, 20, 8, 210)]]
+    rows = []
+    for shift in (0.0, 15 * 4096.0):
+        for p in pairs:
+            rows += [np.array(x, np.float64) + [shift, shift, 0, 0, 0]
+                     for x in p]
+    n = len(rows)
+    far = [(5e4 + 100.0 * i, -5e4, 4, 4, 0) for i in range(128)]
+    boxes = (rows + far[:96 - n] + rows[::2] + far[96 - n:128 - n - n // 2]
+             + rows[1::2])
+    return torch.from_numpy(np.array(boxes, np.float32))[None]
+
+
+def phase_nms_kernels():
+    """nms_mask and nms_scan at the eval-load shape against their plain
+    versions, with times and bounds."""
+    from ryolo_tpu_torch.ops import cuda_nms
+    from ryolo_tpu_torch.ops.cuda_iou import (OPS_PER_COL_BOX, OPS_PER_PAIR,
+                                              OPS_PER_ROW_BOX)
+    from ryolo_tpu_torch.ops.rotated_nms import (decided_rows, nms_mask_plain,
+                                                 nms_rotated_masked,
+                                                 nms_scan_plain)
+
+    dev = torch.device("cuda")
+    k, max_keep = 5000, 1500  # MAX_NMS, MAX_DET
+    boxes, valid = nms_candidates(torch.Generator().manual_seed(SEED + 5),
+                                  BATCH, k, [k] * (BATCH - 1) + [3000])
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    n_rows = decided_rows(valid)
+    rows_total = int(n_rows.sum())
+    n_pairs, n_near = pair_counts(boxes, valid, n_rows)
+    words_written = int(sum((torch.arange(n, device=dev) // 64 + 1).sum()
+                            for n in n_rows.tolist()))
+    rep = {}
+    for thr in (0.2, 0.65):
+        mask = cuda_nms.nms_mask(boxes, n_rows, thr)
+        torch.cuda.synchronize()
+        plain, plain_ms = cuda_ms_once(
+            lambda: nms_mask_plain(boxes, n_rows, thr))
+        got, want = mask_bits(mask, n_rows), mask_bits(plain, n_rows)
+        diff = (got ^ want).nonzero()
+        worst = float((mask_iou(boxes, diff) - thr).abs().max()) \
+            if len(diff) else 0.0
+        check(worst <= 1e-5, f"mask bits differ off the knife edge at thr "
+              f"{thr}: plain IoU {worst} from it")
+        ms = cuda_ms(lambda: cuda_nms.nms_mask(boxes, n_rows, thr), 20)
+        ops = mask_ops(n_pairs, n_near, rows_total)
+        nbytes = rows_total * 20 + words_written * 8 + BATCH * 4
+        t_ops, t_bytes = ops / H100_FP32_OPS, nbytes / H100_BYTES_PER_S
+        bound, by = max(t_ops, t_bytes) * 1e3, \
+            "operations" if t_ops >= t_bytes else "bytes"
+        ops_all = (n_pairs * OPS_PER_PAIR
+                   + rows_total * (OPS_PER_ROW_BOX + OPS_PER_COL_BOX))
+        log("kernels", f"nms_mask {BATCH}x{k} (valid {n_rows.tolist()}) at "
+            f"thr {thr}: {int(got.sum())} bits set, {len(diff)} differ from "
+            "the plain version (each within 1e-5 of thr); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound:.5f} ms "
+            f"({by}: {n_pairs} valid pairs, {n_near} not ruled out by the "
+            f"far reject, {words_written} words written); bound with every "
+            f"valid pair clipped {ops_all / H100_FP32_OPS * 1e3:.5f} ms")
+
+        keep = cuda_nms.nms_scan(mask, valid, n_rows, max_keep)
+        torch.cuda.synchronize()
+        keep_plain, scan_plain_ms = cuda_ms_once(
+            lambda: nms_scan_plain(mask, valid, n_rows, max_keep))
+        check(torch.equal(keep, keep_plain),
+              f"scan kernel vs plain on the same mask at thr {thr}")
+        scan_ms = cuda_ms(
+            lambda: cuda_nms.nms_scan(mask, valid, n_rows, max_keep), 20)
+        words = scan_words(keep, n_rows, max_keep)
+        scan_bytes = words * 8 + rows_total + BATCH * k + BATCH * 4
+        scan_bound = scan_bytes / H100_BYTES_PER_S * 1e3
+        log("kernels", f"nms_scan at thr {thr}: kept per image "
+            f"{keep.sum(1).tolist()}, equal to the plain scan on the kernel's"
+            f" mask; kernel {scan_ms:.4f} ms, plain {scan_plain_ms:.1f} ms, "
+            f"bound {scan_bound:.5f} ms (bytes: {words} mask words read)")
+
+        # the whole NMS: the kernels' keep against the plain mask + scan
+        nms_plain = nms_scan_plain(plain, valid, n_rows, max_keep)
+        n_keep_diff = int((keep != nms_plain).sum())
+        check(n_keep_diff == 0 or len(diff) > 0,
+              f"NMS keep differs at thr {thr} with equal masks")
+        nms_ms = cuda_ms(lambda: nms_rotated_masked(
+            boxes, valid.float(), valid, thr, max_keep=max_keep,
+            presorted=True), 20)
+        log("kernels", f"NMS at thr {thr} (presorted, mask + scan): "
+            f"{nms_ms:.4f} ms per batch of {BATCH}; keep equal to the plain "
+            f"NMS's except {n_keep_diff} rows (allowed only through the "
+            f"{len(diff)} knife-edge bits)")
+        rep[thr] = dict(
+            mask=dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                      max_abs_err=float(len(diff) > 0)),
+            scan=dict(ms=scan_ms, plain_ms=scan_plain_ms,
+                      bound_ms=scan_bound, bound_by="bytes",
+                      max_abs_err=float((keep ^ keep_plain).any())))
+
+    probes = reject_probes().to(dev)
+    p_valid = torch.ones(probes.shape[:2], dtype=torch.bool, device=dev)
+    p_rows = decided_rows(p_valid)
+    for thr in (1e-3, 0.5):
+        got = mask_bits(cuda_nms.nms_mask(probes, p_rows, thr), p_rows)
+        want = mask_bits(nms_mask_plain(probes, p_rows, thr), p_rows)
+        check(torch.equal(got, want),
+              f"reject probes at thr {thr}: {(got ^ want).nonzero().tolist()}")
+    torch.cuda.empty_cache()  # the plain versions' buffers
+    log("kernels", "far-reject probes equal to the plain mask at thr 0.001 "
+        "and 0.5 (circles at the margin and 0.01 px inside, touching boxes, "
+        "overlap 5e-5 px, identical boxes, theta vs theta+180; one chunk and"
+        " across chunks; near 0 and at 15 x 4096 px)")
+    return rep[0.65]
 
 
 def spec_affines(rng, b, s):
@@ -596,8 +849,7 @@ def write_images(folder, rng):
 
 def phase_main_path(tmp, model):
     import ryolo_tpu_torch.eval.postprocess as pp
-    from ryolo_tpu_torch.detect import Detect
-    from ryolo_tpu_torch.ops import cuda_iou, rotated_nms
+    from ryolo_tpu_torch.ops import cuda_nms
     from ryolo_tpu_torch.utils.config import load_yaml
 
     names = load_yaml(os.path.join(REPO, "configs", "DOTA.yaml"))["names"]
@@ -609,8 +861,9 @@ def phase_main_path(tmp, model):
     weights = os.path.join(tmp, "w.pth")
     torch.save(model.state_dict(), weights)
 
-    # time every NMS call and kernel launch with CUDA events, by batch
-    # (wrapping the module functions; the launch count stays the wrapper's)
+    # time every NMS call and kernel launch with CUDA events, by batch, and
+    # count the host syncs inside the NMS (wrapping the module functions;
+    # the launch counts stay the launchers')
     spans = []
 
     def timed(key, fn):
@@ -623,8 +876,39 @@ def phase_main_path(tmp, model):
             return out
         return wrapped
 
-    pp.nms_rotated_masked = timed("nms", pp.nms_rotated_masked)
-    cuda_iou._launch = timed("kernel", cuda_iou._launch)
+    def sync_counted(fn):
+        def wrapped(*a, **kw):
+            # PyTorch reports every synchronizing call made in this mode
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            # (the mode's one-off notice that it is a prototype is not one)
+            spans[-1]["syncs"] += [str(w.message)[:300] for w in caught
+                                   if "called a synchronizing" in
+                                   str(w.message)]
+            return out
+        return wrapped
+
+    saved = [(pp, "nms_rotated_masked"), (cuda_nms, "nms_mask"),
+             (cuda_nms, "nms_scan")]
+    saved = [(m, name, getattr(m, name)) for m, name in saved]
+    pp.nms_rotated_masked = timed("nms", sync_counted(pp.nms_rotated_masked))
+    cuda_nms.nms_mask = timed("mask", cuda_nms.nms_mask)
+    cuda_nms.nms_scan = timed("scan", cuda_nms.nms_scan)
+    try:
+        return detect_runs(tmp, data, weights, spans)
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def detect_runs(tmp, data, weights, spans):
+    from ryolo_tpu_torch.detect import Detect
+    from ryolo_tpu_torch.ops import cuda_iou, cuda_nms
 
     results = {}
     for label, conf, iou, dtype in (("cli_default", 0.7, 0.2, "f32"),
@@ -639,21 +923,23 @@ def phase_main_path(tmp, model):
         infer = det.infer
 
         def batch_infer(*a, **kw):
-            spans.append({"nms": [], "kernel": []})
+            spans.append({"nms": [], "mask": [], "scan": [], "syncs": []})
             return infer(*a, **kw)
 
         det.infer = batch_infer
         spans.clear()
+        # the main path's launches only: every count set to 0 just before
         cuda_iou.LAUNCHES["rotated_iou"] = 0
-        rotated_nms.SYNCS["nms"] = 0
+        for key in cuda_nms.LAUNCHES:
+            cuda_nms.LAUNCHES[key] = 0
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
             out = det.detect()
         finally:
             os.chdir(cwd)
-        launches = cuda_iou.LAUNCHES["rotated_iou"]
-        syncs = rotated_nms.SYNCS["nms"]
+        launches = dict(cuda_nms.LAUNCHES)
+        iou_launches = cuda_iou.LAUNCHES["rotated_iou"]
         torch.cuda.synchronize()
 
         check(len(out) == N_IMAGES, len(out))
@@ -664,12 +950,20 @@ def phase_main_path(tmp, model):
             check(((d[:, 5] > conf) & (d[:, 5] <= 1)).all(), "scores")
         check(max(n_det) > 0, "no detections")
         nb = len(det.batch_s)
+        syncs = [len(b["syncs"]) for b in spans]
+        per_batch = [(len(b["mask"]), len(b["scan"])) for b in spans]
+        check(len(spans) == nb and all(p == (1, 1) for p in per_batch),
+              f"{label}: (nms_mask, nms_scan) launches per batch {per_batch}")
+        check(launches == {"nms_mask": nb, "nms_scan": nb}, launches)
+        check(iou_launches == 0, f"{iou_launches} pairwise IoU launches")
+        check(sum(syncs) == 0, f"{label}: NMS host syncs per batch {syncs}: "
+              + "; ".join(m for b in spans for m in b["syncs"]))
         # batch 0 carries cuDNN autotuning: steady numbers from batch 2 on
         steady = det.batch_s[1:]
         ips = BATCH * len(steady) / sum(steady)
         stage = {k: float(np.mean([s[k] for s in det.stage_ms[1:]]))
                  for k in det.stage_ms[0]}
-        for key in ("nms", "kernel"):
+        for key in ("nms", "mask", "scan"):
             stage[key] = float(np.mean([
                 sum(s.elapsed_time(e) for s, e in b[key]) for b in spans[1:]]))
         log("main", f"{label} (conf {conf}, iou {iou}, {dtype}): {nb} batches "
@@ -678,11 +972,12 @@ def phase_main_path(tmp, model):
             "letterbox and drawing; ms per batch " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stage.items()))
         log("main", f"{label}: detections per image min {min(n_det)} max "
-            f"{max(n_det)}; rotated_iou launches {launches} "
-            f"({launches / nb:.1f} per batch); NMS host syncs {syncs} "
-            f"({syncs / nb:.1f} per batch)")
-        results[label] = dict(launches=launches, ips=ips, stage=stage)
-    check(results["eval_load"]["launches"] > 0, "kernel never launched")
+            f"{max(n_det)}; launches {launches} over {nb} batches (one "
+            f"nms_mask and one nms_scan per batch), pairwise rotated_iou "
+            f"launches {iou_launches}; NMS host syncs per batch {syncs} "
+            "(sync debug mode warn)")
+        results[label] = dict(launches=launches, iou_launches=iou_launches,
+                              ips=ips, stage=stage)
     return results
 
 
@@ -751,10 +1046,14 @@ def main():
     import ryolo_tpu_torch  # noqa: F401  (fails outside the repository)
     from ryolo_tpu_torch.utils.config import load_yaml
 
+    from ryolo_tpu_torch.ops import cuda_iou
+
     t0 = time.perf_counter()
     phase_device()
     phase_build()
     kern = phase_kernels()
+    check_launches = cuda_iou.LAUNCHES["rotated_iou"]
+    nms = phase_nms_kernels()
     warp = phase_warp_kernel()
     cfg = load_yaml(os.path.join(REPO, "configs", "hyp.yaml"))
     names = load_yaml(os.path.join(REPO, "configs", "DOTA.yaml"))["names"]
@@ -768,14 +1067,29 @@ def main():
         train = phase_train(split, names, cfg)
         phase_train_card_vs_cpu(split, names, cfg)
 
-    launches = sum(r["launches"] for r in main_res.values())
+    launches = {key: sum(r["launches"][key] for r in main_res.values())
+                for key in ("nms_mask", "nms_scan")}
+    iou_launches = sum(r["iou_launches"] for r in main_res.values())
+    nms_src = "ryolo_tpu_torch/ops/csrc/rotated_nms.cu"
     print(json.dumps({"kernels": [{
         "name": "rotated_iou", "route": "cuda",
         "source": "ryolo_tpu_torch/ops/csrc/rotated_iou.cu",
-        "replaces": "ryolo_tpu/ops/pallas_iou.py:76",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "replaces": "off the detect path: B1's IoU runs there inside "
+                    "nms_mask; this is the public pairwise_rotated_iou",
+        "launches": iou_launches, "check_launches": check_launches,
+        "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
+        "library_ms": None}, {
+        "name": "nms_mask", "route": "cuda", "source": nms_src,
+        "replaces": "ryolo_tpu/ops/pallas_iou.py:76 (inside "
+                    "ryolo_tpu/ops/rotated_nms.py:127-182)",
+        "launches": launches["nms_mask"], **nms["mask"],
+        "library_ms": None}, {
+        "name": "nms_scan", "route": "cuda", "source": nms_src,
+        "replaces": "ryolo_tpu/ops/rotated_nms.py:152-212 (XLA while_loop; "
+                    "no Pallas kernel)",
+        "launches": launches["nms_scan"], **nms["scan"],
         "library_ms": None}, {
         "name": "warp", "route": "cuda",
         "source": "ryolo_tpu_torch/ops/csrc/warp.cu",

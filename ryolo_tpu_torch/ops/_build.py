@@ -4,8 +4,8 @@ Each ``ops/csrc/<name>.cu`` exports plain C functions and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>.so`` at the repo
 root (listed in ``.gitignore``) and loaded with ``ctypes``; nothing
 includes PyTorch's headers, so a build takes seconds.  A library is
-rebuilt when its source or the flags change (the content hash is part of
-the file name).  ``-Xptxas -v`` output (registers, spills) is kept beside
+rebuilt when its source, any ``csrc/*.cuh`` header or the flags change
+(the content hash is part of the file name).  ``-Xptxas -v`` output (registers, spills) is kept beside
 each library as ``lib<name>-<hash>.ptxas.txt``.
 
 ``--fmad=false`` keeps multiply and add separately rounded, as the plain
@@ -40,9 +40,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

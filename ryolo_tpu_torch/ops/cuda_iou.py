@@ -1,8 +1,11 @@
 """Pairwise rotated IoU: the hand-written CUDA kernel and its wrapper.
 
-Replaces the TPU kernel ``ryolo_tpu/ops/pallas_iou.py:76``
-(``_iou_tile_kernel``, entry ``pairwise_rotated_iou_pallas`` :141).  The
-kernel is ``ops/csrc/rotated_iou.cu``, built for ``sm_90a`` by
+The counterpart of ``pairwise_rotated_iou_pallas``
+(``ryolo_tpu/ops/pallas_iou.py:141``) as a public entry point.  The detect
+path does not launch it: its NMS computes the same IoU inside ``nms_mask``
+(:mod:`ryolo_tpu_torch.ops.cuda_nms`), through the shared
+``ops/csrc/rotated_iou_pair.cuh``.  The kernel is ``ops/csrc/rotated_iou.cu``,
+built for ``sm_90a`` by
 :mod:`ryolo_tpu_torch.ops._build` at first use and called through
 ``ctypes``.  A tensor on the CPU takes the plain PyTorch version
 (:func:`ryolo_tpu_torch.ops.rotated_iou.pairwise_rotated_iou_plain`); a

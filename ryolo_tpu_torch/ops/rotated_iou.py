@@ -10,8 +10,11 @@ Sutherland-Hodgman clips against box2's edges (unit inward normals, a
 vertex within 1e-4 px of an edge counts as inside); the shoelace formula
 gives the area; IoU is 0 where ``union <= 0``.
 
-The CPU tests and ``chip_smoke.py``'s comparison use it; on a CUDA tensor
-the main path runs the kernel (:mod:`ryolo_tpu_torch.ops.cuda_iou`).
+The CPU's NMS mask (``rotated_nms.nms_mask_plain``), the CPU tests and
+``chip_smoke.py``'s comparisons use it.  On a CUDA tensor the NMS computes
+the same IoU inside its ``nms_mask`` kernel (:mod:`ryolo_tpu_torch.ops.cuda_nms`),
+and ``pairwise_rotated_iou`` launches the pairwise kernel
+(:mod:`ryolo_tpu_torch.ops.cuda_iou`).
 """
 
 from __future__ import annotations

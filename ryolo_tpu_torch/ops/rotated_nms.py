@@ -1,45 +1,99 @@
 """Greedy rotated NMS over padded, batched candidate sets.
 
 Counterpart of ``ryolo_tpu/ops/rotated_nms.py`` (``nms_rotated_masked``
-:62, ``_iou_block`` :42).  Same semantics: descending score order, a
-candidate is suppressed when its IoU with a kept higher-scoring candidate
-is strictly above the threshold, at most ``max_keep`` kept (later ones are
-dropped), candidates handled ``CHUNK`` (64) at a time.
+:62, ``_iou_block`` :42), the same function: candidates in descending score
+order (a stable sort of -score, padding last), and with ``ch(x) = x // 64``
+(the JAX chunk) an earlier candidate ``e`` suppresses a later ``r`` when
+their IoU is strictly above the threshold, with ``_iou_block``'s box roles:
+``IoU(box1=r, box2=e)`` when ``ch(e) < ch(r)`` (the candidate against the
+kept buffer), ``IoU(box1=e, box2=r)`` when ``ch(e) == ch(r)`` (the chunk's
+self block).  ``keep[r]`` holds when ``r`` is valid, no kept ``e < r``
+suppresses it and fewer than ``max_keep`` earlier rows are kept.  As in the
+JAX loop, only the rows below ``64 * ceil(#valid / 64)`` are decided.
 
-The JAX package runs the loop on the device with dynamic trip counts.
-Here it is a host loop over chunks that runs the B images together:
-
-* one IoU launch per chunk, the chunk's rows against the live kept prefix
-  followed by the chunk itself (``chunk x (kept || chunk)``), with the
-  candidate as box1 and the earlier box as box2, as ``_iou_block`` orients
-  them;
-* the within-chunk greedy is the fixpoint of ``rotated_nms.py:152-171``,
-  iterated on the device ``FIX_ROUNDS`` rounds at a time;
-* one host sync per chunk reads the fixpoint's convergence flag together
-  with the kept counts, which give the next chunk's kept prefix and the
-  early exit (every image out of valid chunks or at ``max_keep``); one
-  more sync before the loop reads the valid counts.  A chunk whose
-  fixpoint needs more rounds adds a sync per further ``FIX_ROUNDS``.
-
-``SYNCS`` counts the host syncs, for the record of what the loop costs.
+It runs in two steps, a suppression bitmask and a greedy scan over it
+(layout in :mod:`ryolo_tpu_torch.ops.cuda_nms`).  On a CUDA tensor they are
+the kernels ``nms_mask`` and ``nms_scan`` (one launch each per call, no host
+read); on the CPU their plain versions here, ``nms_mask_plain`` and
+``nms_scan_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ryolo_tpu_torch.ops.cuda_iou import pairwise_rotated_iou
+from ryolo_tpu_torch.ops import cuda_nms
+from ryolo_tpu_torch.ops.rotated_iou import pairwise_rotated_iou_plain
 
 NEG_INF = -1e30
-CHUNK = 64
-FIX_ROUNDS = 4
+CHUNK = cuda_nms.CHUNK
+# bit j of an int64 word: 2**j, and -2**63 for the sign bit
+_BITS = torch.tensor([1 << j for j in range(CHUNK - 1)] + [-(1 << 63)],
+                     dtype=torch.int64)
 
-SYNCS = {"nms": 0}
+
+def decided_rows(svalid: torch.Tensor) -> torch.Tensor:
+    """``(B,)`` int32: rows the NMS decides, ``min(K, 64 * ceil(#valid /
+    64))``, the JAX loop's chunk count (``rotated_nms.py:194-204``)."""
+    k = svalid.shape[1]
+    n = svalid.sum(1)
+    return ((n + CHUNK - 1) // CHUNK * CHUNK).clamp(max=k).to(torch.int32)
 
 
-def _host(t: torch.Tensor) -> list:
-    SYNCS["nms"] += 1
-    return t.tolist()
+def _n_chunks(n_rows: torch.Tensor) -> int:
+    return -(-int(n_rows.max()) // CHUNK) if n_rows.numel() else 0
+
+
+def nms_mask_plain(sboxes: torch.Tensor, n_rows: torch.Tensor,
+                   thr: float) -> torch.Tensor:
+    """The ``nms_mask`` kernel's plain version: ``(B, K, ceil(K / 64))``
+    int64 words, with the plain IoU, 64 rows at a time against the earlier
+    prefix.  Words the kernel does not write are 0."""
+    b, k, _ = sboxes.shape
+    dev = sboxes.device
+    thr_t = torch.tensor(thr, dtype=torch.float32, device=dev)
+    bits = _BITS.to(dev)
+    mask = torch.zeros((b, k, -(-k // CHUNK)), dtype=torch.int64, device=dev)
+    for ci in range(_n_chunks(n_rows)):
+        lo, hi = ci * CHUNK, min(k, (ci + 1) * CHUNK)
+        rows = sboxes[:, lo:hi]
+        # [r, e]: across chunks IoU(box1=r, box2=e); within, IoU(box1=e, box2=r)
+        cross = pairwise_rotated_iou_plain(rows, sboxes[:, :lo]) > thr_t
+        same = (pairwise_rotated_iou_plain(rows, rows) > thr_t).transpose(1, 2)
+        same = same & torch.ones(hi - lo, hi - lo, dtype=torch.bool,
+                                 device=dev).tril(-1)
+        hit = torch.cat([cross, same,
+                         same.new_zeros(b, hi - lo, (ci + 1) * CHUNK - hi)], 2)
+        words = (hit.view(b, hi - lo, ci + 1, CHUNK).long() * bits).sum(-1)
+        live = torch.arange(lo, hi, device=dev) < n_rows[:, None]
+        mask[:, lo:hi, :ci + 1] = torch.where(live[..., None], words, 0)
+    return mask
+
+
+def nms_scan_plain(mask: torch.Tensor, svalid: torch.Tensor,
+                   n_rows: torch.Tensor, max_keep: int) -> torch.Tensor:
+    """The ``nms_scan`` kernel's plain version: the greedy scan of ``mask``
+    row by row, with the ``max_keep`` cap.  Reads only the words the mask
+    kernel writes."""
+    b, k = svalid.shape
+    dev = svalid.device
+    shifts = torch.arange(CHUNK, device=dev)
+    keep = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    count = torch.zeros(b, dtype=torch.long, device=dev)
+    for ci in range(_n_chunks(n_rows)):
+        lo, hi = ci * CHUNK, min(k, (ci + 1) * CHUNK)
+        live = torch.arange(lo, hi, device=dev) < n_rows[:, None]
+        words = torch.where(live[..., None], mask[:, lo:hi, :ci + 1], 0)
+        hit = ((words[..., None] >> shifts) & 1).bool().flatten(2)
+        sup = (hit[:, :, :lo] & keep[:, None, :lo]).any(2)
+        base = svalid[:, lo:hi] & live & ~sup
+        same = hit[:, :, lo:hi]  # [i, j]: chunk row j suppresses chunk row i
+        for i in range(hi - lo):
+            kept = (base[:, i] & (count < max_keep)
+                    & ~(same[:, i, :i] & keep[:, lo:lo + i]).any(1))
+            keep[:, lo + i] = kept
+            count += kept
+    return keep
 
 
 def nms_rotated_masked(boxes: torch.Tensor, scores: torch.Tensor,
@@ -50,72 +104,31 @@ def nms_rotated_masked(boxes: torch.Tensor, scores: torch.Tensor,
 
     Returns ``order`` (candidate indices by descending score, ties by
     index) and ``keep`` aligned with ``order``.  ``presorted``: the caller
-    gives descending scores with padding last.
+    gives descending scores with padding last.  On a CUDA tensor the two
+    kernels launch on the current stream and nothing is read back.
     """
     unbatched = boxes.dim() == 2
     if unbatched:
         boxes, scores, valid = boxes[None], scores[None], valid[None]
     b, k = scores.shape
     dev = boxes.device
-    if k == 0:
-        order = torch.zeros((b, 0), dtype=torch.long, device=dev)
-        keep = torch.zeros((b, 0), dtype=torch.bool, device=dev)
-        return (order[0], keep[0]) if unbatched else (order, keep)
-    c = min(CHUNK, k)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no rotated NMS for device {dev}")
     m = min(max_keep, k)
-    k_pad = -(-k // c) * c
-
     if presorted:
         order = torch.arange(k, device=dev).expand(b, k)
-        sboxes, svalid = boxes.float(), valid
+        sboxes, svalid = boxes.float(), valid.bool()
     else:
         sort_scores = torch.where(valid, scores, NEG_INF)
         order = torch.sort(-sort_scores, dim=1, stable=True).indices
         sboxes = boxes.float().gather(1, order[..., None].expand(b, k, 5))
-        svalid = valid.gather(1, order)
-    sboxes = torch.cat([sboxes, sboxes.new_zeros(b, k_pad - k, 5)], 1)
-    svalid = torch.cat([svalid, svalid.new_zeros(b, k_pad - k)], 1)
-
-    thr = torch.tensor(iou_threshold, dtype=torch.float32, device=dev)
-    kept = torch.zeros((b, m + 1, 5), dtype=torch.float32, device=dev)
-    count = torch.zeros(b, dtype=torch.long, device=dev)
-    keep = torch.zeros((b, k_pad), dtype=torch.bool, device=dev)
-    # tri[j, i]: earlier chunk element j may suppress later element i
-    tri = torch.ones((c, c), dtype=torch.bool, device=dev).triu(1)
-    slots = torch.arange(m, device=dev)
-
-    n_chunks = [-(-n // c) for n in _host(svalid.sum(1))]
-    counts = [0] * b
-    ci = 0
-    while any(ci < n_chunks[i] and counts[i] < m for i in range(b)):
-        start = ci * c
-        cboxes = sboxes[:, start:start + c].contiguous()
-        live = max(counts)
-        iou = pairwise_rotated_iou(
-            cboxes, torch.cat([kept[:, :live], cboxes], 1))
-        hit = iou > thr
-        kept_live = slots[:live] < count[:, None]  # (b, live)
-        sup_kept = (hit[:, :, :live] & kept_live[:, None, :]).any(2)
-        sup_self = hit[:, :, live:] & tri
-        base = svalid[:, start:start + c] & ~sup_kept
-
-        kc = base
-        while True:
-            for _ in range(FIX_ROUNDS):
-                prev = kc
-                kc = base & ~(kc[:, :, None] & sup_self).any(1)
-            changed = (kc != prev).any()
-            rank = count[:, None] + torch.cumsum(kc, 1) - kc.long()
-            kc_cap = kc & (rank < m)  # kept-buffer capacity, score order
-            new_count = count + kc_cap.sum(1)
-            flags = _host(torch.cat([changed.long()[None], new_count]))
-            if not flags[0]:
-                break
-        slot = torch.where(kc_cap, rank, m)  # slot m: dropped rows
-        kept.scatter_(1, slot[..., None].expand(b, c, 5), cboxes)
-        keep[:, start:start + c] = kc_cap
-        count, counts = new_count, flags[1:]
-        ci += 1
-
-    keep = keep[:, :k]
+        svalid = valid.bool().gather(1, order)
+    sboxes, svalid = sboxes.contiguous(), svalid.contiguous()
+    n_rows = decided_rows(svalid)
+    if dev.type == "cuda":
+        mask = cuda_nms.nms_mask(sboxes, n_rows, iou_threshold)
+        keep = cuda_nms.nms_scan(mask, svalid, n_rows, m)
+    else:
+        mask = nms_mask_plain(sboxes, n_rows, iou_threshold)
+        keep = nms_scan_plain(mask, svalid, n_rows, m)
     return (order[0], keep[0]) if unbatched else (order, keep)

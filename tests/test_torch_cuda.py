@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them.  The
 file imports nothing of JAX, so on a machine without JAX it runs with
@@ -6,7 +6,10 @@ file imports nothing of JAX, so on a machine without JAX it runs with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Bounds: tests/test_pallas_iou.py's (fewer than 5e-4 of pairs off by more
-than 1e-3, median difference below 1e-6).
+than 1e-3, median difference below 1e-6).  The NMS mask kernel may differ
+from its plain version only on knife-edge pairs (plain IoU within 1e-5 of
+the threshold: sincosf and the CPU's sin/cos may round one ulp apart); the
+scan kernel equals its plain version exactly on the same mask.
 """
 
 import numpy as np
@@ -93,6 +96,103 @@ def test_nms_on_card_equals_cpu(cuda):
                                       max_keep=100)
     assert torch.equal(o_cpu, o_gpu.cpu())
     assert torch.equal(k_cpu, k_gpu.cpu())
+
+
+# -- the NMS kernels (nms_mask, nms_scan) ------------------------------------
+# Inputs, probes and the bit comparison are chip_smoke.py's (phase 3).
+
+@pytest.mark.parametrize("b,k,n_valid,thr", [(3, 300, 300, 0.3),
+                                             (2, 700, 450, 0.65),
+                                             (1, 1, 1, 0.3)])
+def test_nms_kernels_match_plain_versions(cuda, b, k, n_valid, thr):
+    from chip_smoke import mask_bits, mask_iou, nms_candidates
+    from ryolo_tpu_torch.ops import cuda_nms
+    from ryolo_tpu_torch.ops.rotated_nms import (decided_rows, nms_mask_plain,
+                                                 nms_scan_plain)
+
+    boxes, valid = nms_candidates(torch.Generator().manual_seed(k), b, k,
+                                  [k] * (b - 1) + [n_valid])
+    boxes, valid = boxes.to(cuda), valid.to(cuda)
+    n_rows = decided_rows(valid)
+    before = dict(cuda_nms.LAUNCHES)
+    mask = cuda_nms.nms_mask(boxes, n_rows, thr)
+    torch.cuda.synchronize()
+    plain = nms_mask_plain(boxes, n_rows, thr)
+    diff = (mask_bits(mask, n_rows) ^ mask_bits(plain, n_rows)).nonzero()
+    if len(diff):  # knife-edge pairs only
+        assert ((mask_iou(boxes, diff) - thr).abs() <= 1e-5).all()
+    for m in (1500, 40):
+        keep = cuda_nms.nms_scan(mask, valid, n_rows, m)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, nms_scan_plain(mask, valid, n_rows, m))
+    assert cuda_nms.LAUNCHES == {"nms_mask": before["nms_mask"] + 1,
+                                 "nms_scan": before["nms_scan"] + 2}
+
+
+def test_nms_far_reject_probes(cuda):
+    """Pairs where the far reject must not change a bit (circles at the
+    margin and just inside it, touching, overlapping by 5e-5 px, identical,
+    theta + 180), in one chunk and across chunks."""
+    from chip_smoke import mask_bits, reject_probes
+    from ryolo_tpu_torch.ops import cuda_nms
+    from ryolo_tpu_torch.ops.rotated_nms import decided_rows, nms_mask_plain
+
+    boxes = reject_probes().to(cuda)
+    n_rows = decided_rows(torch.ones(boxes.shape[:2], dtype=torch.bool,
+                                     device=cuda))
+    for thr in (1e-3, 0.5):
+        got = mask_bits(cuda_nms.nms_mask(boxes, n_rows, thr), n_rows)
+        want = mask_bits(nms_mask_plain(boxes, n_rows, thr), n_rows)
+        assert torch.equal(got, want), (got ^ want).nonzero()
+
+
+def test_nms_kernels_at_max_k(cuda):
+    """The scan's shared memory holds MAX_K / 64 words: both kernels launch
+    at K = MAX_K (64 rows decided), and one chunk more is refused."""
+    from ryolo_tpu_torch.ops import cuda_nms
+
+    k = cuda_nms.MAX_K
+    boxes = torch.zeros(1, k, 5, device=cuda)
+    boxes[0, :, 0] = 10.0 * torch.arange(k, device=cuda)  # IoU 0.6 in a row
+    boxes[0, :, 2:4] = 40.0
+    valid = torch.zeros(1, k, dtype=torch.bool, device=cuda)
+    valid[0, :64] = True
+    n_rows = torch.tensor([64], dtype=torch.int32, device=cuda)
+    keep = cuda_nms.nms_scan(cuda_nms.nms_mask(boxes, n_rows, 0.3), valid,
+                             n_rows, 1500)
+    torch.cuda.synchronize()
+    small = cuda_nms.nms_scan(cuda_nms.nms_mask(boxes[:, :64].contiguous(),
+                                                n_rows, 0.3),
+                              valid[:, :64].contiguous(), n_rows, 1500)
+    assert torch.equal(keep[:, :64], small) and not keep[:, 64:].any()
+    assert 0 < int(small.sum()) < 64
+    with pytest.raises(ValueError, match="K <="):
+        cuda_nms.nms_mask(torch.zeros(1, k + 64, 5, device=cuda), n_rows, 0.3)
+
+
+def test_nms_raises_instead_of_falling_back(cuda, monkeypatch, tmp_path):
+    from chip_smoke import nms_candidates
+    from ryolo_tpu_torch.ops import _build, cuda_nms
+    from ryolo_tpu_torch.ops.rotated_nms import nms_rotated_masked
+
+    boxes, valid = nms_candidates(torch.Generator().manual_seed(0), 1, 70,
+                                  [70])
+    boxes, valid = boxes.to(cuda), valid.to(cuda)
+    n_rows = torch.tensor([70], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_nms.nms_mask(boxes.double(), n_rows, 0.3)
+    with pytest.raises(ValueError):
+        cuda_nms.nms_mask(boxes, n_rows.cpu(), 0.3)  # mixed devices
+    with pytest.raises(ValueError):
+        cuda_nms.nms_scan(torch.zeros(1, 70, 1, dtype=torch.int64,
+                                      device=cuda), valid, n_rows, 10)
+    # a kernel that does not build raises; nothing falls back to the CPU
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        nms_rotated_masked(boxes[0], valid[0].float(), valid[0], 0.3)
 
 
 # -- the canvas warp kernel (B2) --------------------------------------------

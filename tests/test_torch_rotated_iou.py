@@ -148,3 +148,25 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["rotated_iou"])
     assert _build._target("rotated_iou").name.startswith("librotated_iou-")
+
+
+def test_kernel_build_hash_covers_headers(monkeypatch, tmp_path):
+    """An edit to a shared header rebuilds every library; an edit to one
+    source rebuilds only that one."""
+    import shutil
+
+    from ryolo_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("rotated_iou", "rotated_nms", "warp")
+    before = {n: _build._target(n).name for n in names}
+    header = csrc / "rotated_iou_pair.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    after = {n: _build._target(n).name for n in names}
+    assert all(after[n] != before[n] for n in names)
+    src = csrc / "warp.cu"
+    src.write_bytes(src.read_bytes() + b"\n")
+    assert _build._target("warp").name != after["warp"]
+    assert _build._target("rotated_nms").name == after["rotated_nms"]
