@@ -15,7 +15,8 @@ Phases, each reported on its own lines:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes its path gives it plus probes, and their times: the pairwise
    rotated IoU, the NMS mask and scan at 8 x 5000 candidates (thresholds
-   0.2 and 0.65, with far-reject probes), the warp;
+   0.2 and 0.65, with far-reject probes), the canvas warp, and the tap
+   renderer at 12 specs x 800 px in both tile layouts (bit for bit);
 4. detect path: YOLOv7-CSL, nc = 16, seeded random weights, deploy-fused,
    f32, 800 px, batch 8, driven through ``ryolo_tpu_torch.detect.Detect``
    on a folder of synthetic images at the CLI default (conf 0.7, iou 0.2)
@@ -26,12 +27,15 @@ Phases, each reported on its own lines:
    sets from post-processing on the card (kernel) and on the CPU (plain);
 6. training path: a synthetic DOTA split, YOLOv7-CSL at full width from
    ``weights_init_normal``, the port's spec loader at 800 px, batch 8,
-   with and without the device tile bank, steps through
-   ``Trainer.train_step_rendered`` (device-side augmentation with the warp
-   kernel), warm-up and accumulation as the JAX ``train.py`` sets them;
+   steps through ``Trainer.train_step_rendered`` with warm-up and
+   accumulation as the JAX ``train.py`` sets them, in three runs: the tap
+   renderer (one ``render`` launch and no ``warp`` launch per step) with
+   pixel specs and with the device tile bank, then the canvas route (paste,
+   HSV, one ``warp`` launch per step) with the tile bank; no host sync in
+   a step;
 7. card against CPU, training, at 256 px, batch 2: the same spec batch
-   rendered on the card (kernel) and on the CPU (plain), then one SGD step
-   from the same weights on each.
+   rendered on the card (the render kernel) and on the CPU (its plain
+   version), then one SGD step from the same weights on each.
 
 Then one JSON line with every kernel's numbers and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -108,7 +112,7 @@ def phase_device():
 def phase_build():
     from ryolo_tpu_torch.ops import _build
 
-    names = ["rotated_iou", "rotated_nms", "warp"]
+    names = ["rotated_iou", "rotated_nms", "warp", "render"]
     t = time.perf_counter()
     _build.build(names)
     log("build", f"{', '.join(names)} built in "
@@ -451,6 +455,58 @@ def spec_affines(rng, b, s):
     return minv
 
 
+HSV_GAINS = np.array([0.015, 0.7, 0.4])  # configs/hyp.yaml hsv_h, hsv_s, hsv_v
+
+
+def render_case(rng, b, s, n_out, t=9):
+    """Render specs shaped as the loader's, from ``rng``: mosaic-4 (slots
+    0-3) or mosaic-9 (0-8) over a 2s canvas, region edges on whole and half
+    cells and grown by 1.5 cells now and then (so a higher slot wins the
+    seam), offsets at each region's start with a jitter of up to 4 cells
+    and regions up to 1.4 s wide (so the clip to [0, s-1] bites), a
+    mosaic-9 slot of zero area mid-prefix now and then, the canvas border
+    unowned, HSV gains as configs/hyp.yaml draws them with one slot in five
+    at identity, affines from :func:`spec_affines`; partners at slots
+    >= ``n_out``, each blended into at most one base, flips at random.
+    Returns a dict of host arrays (``slot_rows`` left to the caller)."""
+    region = np.zeros((b, t, 4), np.float32)
+    offset = np.zeros((b, t, 2), np.float32)
+    for i in range(b):
+        n = 2 if rng.random() < 0.8 else 3
+        cuts = np.sort(rng.uniform(0.6 * s, 1.4 * s, (2, n - 1)), 1)
+        cuts = np.round(cuts * 2) / 2  # whole and half cells
+        xs = np.concatenate([[0.0], cuts[0], [2.0 * s]])
+        ys = np.concatenate([[0.0], cuts[1], [2.0 * s]])
+        k = 0
+        for jy in range(n):
+            for jx in range(n):
+                grow = 1.5 * (rng.random(4) < 0.3)
+                region[i, k] = [max(xs[jx] - grow[0], -1.0),
+                                max(ys[jy] - grow[1], -1.0),
+                                min(xs[jx + 1] + grow[2], 2.0 * s),
+                                min(ys[jy + 1] + grow[3], 2.0 * s)]
+                offset[i, k] = np.floor(region[i, k, :2]) \
+                    + rng.integers(-4, 5, 2)
+                k += 1
+        if n == 3 and rng.random() < 0.5:
+            z = int(rng.integers(1, 8))
+            region[i, z, 2] = region[i, z, 0]  # zero area, mid-prefix
+    hsv = (1 + rng.uniform(-1, 1, (b, t, 3)) * HSV_GAINS).astype(np.float32)
+    hsv[rng.random((b, t)) < 0.2] = 1.0
+    flip = np.zeros((n_out, 2), bool)
+    flip[:] = rng.random((n_out, 2)) < 0.5
+    mix_idx = np.full(n_out, -1, np.int32)
+    mix_r = np.zeros(n_out, np.float32)
+    bases = rng.permutation(n_out)
+    for j, base in zip(range(n_out, b), bases):
+        if j == n_out or rng.random() < 0.5:
+            mix_idx[base] = j
+            mix_r[base] = rng.beta(32.0, 32.0)
+    return dict(region=region, offset=offset, hsv=hsv,
+                minv=spec_affines(rng, b, s), flip=flip, mix_idx=mix_idx,
+                mix_r=mix_r)
+
+
 def warp_coords(minv, s):
     """Canvas coordinates (cx, cy) of every output pixel, as the kernel
     computes them."""
@@ -573,6 +629,153 @@ def phase_warp_kernel():
     return dict(max_abs_err=max_err, **rep)
 
 
+def render_inputs(b, s, n_out, layout, seed, dev):
+    """:func:`render_case` specs with their tile rows on ``dev``: the
+    ``(b*9, s, s)`` pixel tiles, or a 64-row bank (rows drawn at random,
+    some shared between specs)."""
+    rng = np.random.default_rng(seed)
+    spec = render_case(rng, b, s, n_out)
+    n = b * 9 if layout == "pixel" else 64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randint(0, 1 << 24, (n, s, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    slot_rows = (np.arange(b * 9).reshape(b, 9) if layout == "pixel"
+                 else rng.integers(0, n, (b, 9)))
+    return rows, slot_rows, spec
+
+
+def render_args(spec):
+    return [spec[k] for k in ("region", "offset", "hsv", "minv", "flip",
+                              "mix_idx", "mix_r")]
+
+
+def render_bound(rows, slot_rows, spec, n_out):
+    """Least time for the tap renderer on these inputs: bytes (each tile
+    word that a tap of a rendered spec reads, once, the slot table, and the
+    float32 output written once) over the memory rate, against its FP32
+    operations (``ops/cuda_render.py``'s counts: every rendered spec pixel,
+    every owned tap, the HSV round trip of each owned tap whose slot has
+    gains other than 1, the mixup) over the FP32 rate.  A partner counts
+    once per base that blends it, as the kernel renders it per base.  Also
+    returns the counts, and the mean 32-byte sectors that a warp's load of
+    one tap touches with the kernel's 8 x 4 pixel footprint and with a
+    32 x 1 row."""
+    from ryolo_tpu_torch.ops import cuda_render as cr
+    from ryolo_tpu_torch.ops.render import tap_sources
+
+    s = rows.shape[-1]
+    region, hsv, mix_idx = spec["region"], spec["hsv"], spec["mix_idx"]
+    b, t = region.shape[:2]
+    dev = rows.device
+    mult = np.zeros(b)
+    mult[:n_out] += 1
+    for j in mix_idx[:n_out]:
+        if j >= 0:
+            mult[j] += 1
+    mult_t = torch.as_tensor(mult, device=dev)
+    ident = torch.as_tensor((hsv == 1).all(-1), device=dev)  # (b, t)
+    _, taps = tap_sources(s, slot_rows, region, spec["offset"], spec["minv"],
+                          dev)
+    owned = jittered = 0
+    words, sectors = [], {"8x4": [], "32x1": []}
+    for owner, lin in taps:
+        valid = owner >= 0
+        own = owner.clamp(min=0).reshape(b, -1)
+        plain = ident.gather(1, own).view_as(owner)
+        owned += float((valid.sum((1, 2)) * mult_t).sum())
+        jittered += float(((valid & ~plain).sum((1, 2)) * mult_t).sum())
+        words.append(lin[valid & (mult_t > 0)[:, None, None]])
+        sec = torch.where(valid, lin // 8, -1)[mult_t > 0]  # 8 words a sector
+        n = sec.shape[0]
+        for key, (h, w) in (("8x4", (4, 8)), ("32x1", (1, 32))):
+            grp = sec.reshape(n, s // h, h, s // w, w).permute(0, 1, 3, 2, 4)
+            srt = grp.reshape(-1, h * w).sort(-1).values
+            new = torch.cat([srt[:, :1] >= 0,
+                             (srt[:, 1:] != srt[:, :-1]) & (srt[:, 1:] >= 0)],
+                            1)
+            sectors[key].append(new.sum(1).float().mean().item())
+    distinct = int(torch.unique(torch.cat(words)).numel())
+    n_mixed = int((mix_idx[:n_out] >= 0).sum())
+    px = s * s
+    ops = (cr.OPS_PER_SPEC_PIXEL * px * mult.sum() + cr.OPS_PER_TAP * owned
+           + cr.OPS_PER_HSV * jittered + cr.OPS_PER_MIX * n_mixed * px
+           + cr.OPS_PER_OUT_PIXEL * n_out * px)
+    nbytes = distinct * 4 + b * (10 + 10 * t) * 4 + n_out * 3 * px * 4
+    t_ops, t_bytes = ops / H100_FP32_OPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes",
+            dict(ops=ops, bytes=nbytes, words=distinct, owned=owned,
+                 jittered=jittered, ops_ms=t_ops * 1e3,
+                 bytes_ms=t_bytes * 1e3,
+                 sectors={k: float(np.mean(v)) for k, v in sectors.items()}))
+
+
+def phase_render_kernel():
+    """The tap renderer against its plain version on the card, bit for
+    bit, at the training path's shape (12 specs, 8 outputs, 800 px) in
+    both layouts and on probe affines; its time, its bound, the plain
+    version's time, and its time with every gain at 1 (no HSV)."""
+    from ryolo_tpu_torch.ops import cuda_render as cr
+    from ryolo_tpu_torch.ops.render import render_taps_plain
+
+    dev = torch.device("cuda")
+    path_b, n_out = BATCH + max(1, -(-BATCH * 2 // 5)), BATCH  # 12, 8
+    cases = [("path bank 12x800", path_b, IMG, n_out, "bank"),
+             ("path pixel 12x800", path_b, IMG, n_out, "pixel"),
+             ("probes 6x64", 6, 64, 4, "bank")]
+    rep, max_err = {}, 0.0
+    for i, (label, b, s, n, layout) in enumerate(cases):
+        rows, slot_rows, spec = render_inputs(b, s, n, layout, SEED + 7 + i,
+                                              dev)
+        if label.startswith("probes"):
+            spec["minv"][0] = [[1, 0, 0], [0, 1, 0]]               # identity
+            spec["minv"][1] = [[1, 0, 9e6], [0, 1, -3e7]]          # far off
+            spec["minv"][2] = [[0.7071, 0.7071, 5], [0.7071, 0.7071, 9]]
+            spec["minv"][3] = [[2.9, -2.7, 60.0], [2.6, 3.1, -40.0]]
+        args = render_args(spec)
+        got = cr.render_taps(rows, slot_rows, *args, n)
+        torch.cuda.synchronize()
+        want = render_taps_plain(rows, slot_rows, *args, n)
+        n_diff = int((got != want).sum())
+        err = float((got - want).abs().max()) * 255
+        check(n_diff == 0, f"render kernel vs plain, {label}: {n_diff} "
+              f"values differ, max {err}/255")
+        max_err = max(max_err, err)
+        msg = (f"render {label} ({layout}, {int((spec['mix_idx'] >= 0).sum())}"
+               f" of {n} outputs blend a partner): equal to the plain version"
+               " bit for bit")
+        if label.startswith("probes"):
+            log("kernels", msg + " (identity, far off, rank one, |row|_1 "
+                "~5.7)")
+            continue
+        table = cr.to_device(cr.pack_table(slot_rows, *args, n), dev)
+        ms = cuda_ms(lambda: cr.launch(rows, table, n), 50)
+        call_ms = cuda_ms(lambda: cr.render_taps(rows, slot_rows, *args, n),
+                          50)
+        plain_ms = cuda_ms(lambda: render_taps_plain(rows, slot_rows, *args,
+                                                     n), 3)
+        ones = dict(spec, hsv=np.ones_like(spec["hsv"]))
+        table1 = cr.to_device(cr.pack_table(slot_rows, *render_args(ones), n),
+                              dev)
+        ident_ms = cuda_ms(lambda: cr.launch(rows, table1, n), 50)
+        bound, by, cnt = render_bound(rows, slot_rows, spec, n)
+        log("kernels", f"{msg}; kernel {ms:.4f} ms (with every gain 1, no "
+            f"HSV: {ident_ms:.4f} ms; the wrapper's call with the host "
+            f"packing and upload of the slot table {call_ms:.4f} ms), plain "
+            f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}: bytes "
+            f"{cnt['bytes_ms']:.5f} ms for {cnt['bytes']} B, {cnt['words']} "
+            f"distinct tile words read; operations {cnt['ops_ms']:.5f} ms for"
+            f" {cnt['ops']:.4g}, {cnt['owned']:.0f} owned taps, "
+            f"{cnt['jittered']:.0f} with HSV); 32-byte sectors per warp load"
+            f" of a tap: {cnt['sectors']['8x4']:.2f} with the 8 x 4 "
+            f"footprint, {cnt['sectors']['32x1']:.2f} with a 32 x 1 row")
+        rep[layout] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, ident_ms=ident_ms, call_ms=call_ms)
+        del rows, table, table1
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max_err, **rep["bank"], pixel=rep["pixel"])
+
+
 def write_dota_split(root, names, rng):
     """A DOTA-format split: ``images/*.png`` (1024 px) and
     ``annfiles/*.txt`` rows ``x1 y1 .. x4 y4 class-name difficulty``."""
@@ -615,10 +818,19 @@ def train_loss_fn(cfg, device):
                        cfg["hyp"], device)
 
 
+TRAIN_RUNS = (("pixel specs", False, "taps"), ("tile bank", True, "taps"),
+              ("tile bank", True, "canvas"))
+SPANS = ("render", "upload", "kernel", "paste_hsv", "mix_flip", "step")
+
+
 def phase_train(split, names, cfg):
+    """Training steps in three runs: the tap renderer with pixel specs and
+    with the tile bank, then the canvas route (paste, HSV, the warp kernel
+    B2, mixup and flips) with the tile bank."""
     import ryolo_tpu_torch.data.device_augment as da
+    import ryolo_tpu_torch.train.trainer as trainer_mod
     from ryolo_tpu_torch.data.loader import load_data
-    from ryolo_tpu_torch.ops import cuda_warp
+    from ryolo_tpu_torch.ops import cuda_render, cuda_warp
     from ryolo_tpu_torch.train import Trainer, one_cycle
 
     hyp, dev = cfg["hyp"], torch.device("cuda")
@@ -627,8 +839,8 @@ def phase_train(split, names, cfg):
                       lr0)
     lf = one_cycle(1, hyp["lrf"], epochs)
 
-    # CUDA events around each render stage and the step (wrapping the
-    # module functions; the launch count stays the wrapper's)
+    # CUDA events around the render, its stages and the step (wrapping the
+    # module functions; the launch counts stay the wrappers')
     spans = {}
 
     def timed(key, fn):
@@ -641,18 +853,23 @@ def phase_train(split, names, cfg):
             return out
         return wrapped
 
-    saved = {k: getattr(da, k) for k in ("_canvases", "warp_canvas",
-                                         "_mix_flip_tail")}
+    saved = [(trainer_mod, "render_batch"), (cuda_render, "launch"),
+             (da, "to_device"), (da, "_canvases"), (da, "warp_canvas"),
+             (da, "_mix_flip_tail")]
+    saved = [(m, k, getattr(m, k)) for m, k in saved]
+    trainer_mod.render_batch = timed("render", trainer_mod.render_batch)
+    cuda_render.launch = timed("kernel", cuda_render.launch)
+    da.to_device = timed("upload", da.to_device)
     da._canvases = timed("paste_hsv", da._canvases)
     da.warp_canvas = timed("kernel", da.warp_canvas)
     da._mix_flip_tail = timed("mix_flip", da._mix_flip_tail)
     trainer.train_step = timed("step", trainer.train_step)
 
-    results = {}
-    cuda_warp.LAUNCHES["warp"] = 0
+    results, launches = {}, {}
+    counts = (cuda_render.LAUNCHES, "render"), (cuda_warp.LAUNCHES, "warp")
     try:
-        for cached in (False, True):
-            mode = "tile bank" if cached else "pixel specs"
+        for mode, cached, method in TRAIN_RUNS:
+            run = f"{mode}, {method}"
             dataset, loader = load_data(
                 split, names, "DOTA", hyp, True, img_size=IMG,
                 batch_size=BATCH, augment=True, shuffle=True,
@@ -670,6 +887,9 @@ def phase_train(split, names, cfg):
             nw = max(int(epochs * iters * hyp["warmup_prop"]), 1000)
             torch.cuda.reset_peak_memory_stats()
             rows, it, epoch = [], iter(loader), 0
+            # the run's launches only: every count set to 0 just before
+            for table, key in counts:
+                table[key] = 0
             for step in range(1, TRAIN_STEPS + 1):
                 t0 = time.perf_counter()
                 batch = next(it)
@@ -679,6 +899,7 @@ def phase_train(split, names, cfg):
                                            [1, NBS / BATCH]).round()))
                 lr = float(np.interp(step, [0, nw], [0.0, lr0 * lf(epoch)]))
                 spans.clear()
+                before = {key: table[key] for table, key in counts}
                 # the step must not wait for the device: PyTorch reports
                 # every synchronizing call it makes while this mode is on
                 with warnings.catch_warnings(record=True) as caught:
@@ -686,56 +907,71 @@ def phase_train(split, names, cfg):
                     torch.cuda.set_sync_debug_mode("warn")
                     try:
                         _, items = trainer.train_step_rendered(
-                            batch, bank, lr, acc, BATCH)
+                            batch, bank, lr, acc, BATCH, method=method)
                     finally:
                         torch.cuda.set_sync_debug_mode("default")
                 syncs = sum("synchroniz" in str(w.message) for w in caught)
                 check(step == 1 or syncs == 0,
                       f"{syncs} host syncs in step {step}: "
                       + "; ".join(str(w.message)[:200] for w in caught))
+                per_step = {key: table[key] - before[key]
+                            for table, key in counts}
+                want = ({"render": 1, "warp": 0} if method == "taps"
+                        else {"render": 0, "warp": 1})
+                check(per_step == want, f"{run} step {step}: launches "
+                      f"{per_step}, expected {want}")
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 vals = {k: v.item() for k, v in items.items()}
                 check(all(math.isfinite(v) for v in vals.values()), vals)
-                row = {k: sum(s.elapsed_time(e) for s, e in v)
-                       for k, v in spans.items()}
+                row = {k: sum(s.elapsed_time(e) for s, e in spans.get(k, []))
+                       for k in SPANS}
                 row.update(wait=wait * 1e3, wall=wall * 1e3,
                            ips=BATCH / wall,
                            mem=torch.cuda.max_memory_allocated() / 2 ** 30)
                 rows.append(row)
                 layout = ("bank rows" if "spec_tile_idx" in batch
                           else "pixel tiles")
-                log("train", f"{mode} step {step} ({layout}, lr {lr:.3g}, "
-                    f"accumulate {acc}, host syncs {syncs}): " + ", ".join(
+                log("train", f"{run} step {step} ({layout}, lr {lr:.3g}, "
+                    f"accumulate {acc}, host syncs {syncs}, launches "
+                    f"{per_step}): " + ", ".join(
                         f"{k} {v:.4g}" for k, v in vals.items())
                     + "; ms " + ", ".join(
-                        f"{k} {row[k]:.3f}" for k in
-                        ("paste_hsv", "kernel", "mix_flip", "step", "wait",
-                         "wall")) + f"; {row['ips']:.2f} images/s; peak "
-                    f"{row['mem']:.2f} GiB")
+                        f"{k} {row[k]:.3f}" for k in SPANS + ("wait", "wall"))
+                    + f"; {row['ips']:.2f} images/s; peak {row['mem']:.2f} "
+                    "GiB")
                 if step == 1:  # its one-off allocations stay out of the peak
                     torch.cuda.reset_peak_memory_stats()
+            launches[run] = {key: table[key] for table, key in counts}
             del it
             steady = {k: float(np.mean([r[k] for r in rows[1:]]))
                       for k in rows[0]}
-            steady["render"] = (steady["paste_hsv"] + steady["kernel"]
-                                + steady["mix_flip"])
-            log("train", f"{mode}, steps 2..{TRAIN_STEPS} mean: render "
-                f"{steady['render']:.3f} ms (paste + HSV "
-                f"{steady['paste_hsv']:.3f}, kernel {steady['kernel']:.3f}, "
-                f"mix/flip {steady['mix_flip']:.3f}), forward + loss + "
-                f"backward + optimizer {steady['step']:.3f} ms, host wait "
-                f"for the loader {steady['wait']:.3f} ms, step wall "
-                f"{steady['wall']:.3f} ms, {steady['ips']:.2f} images/s, "
-                f"peak {max(r['mem'] for r in rows[1:]):.2f} GiB")
-            results[mode] = steady
+            steady["mem"] = max(r["mem"] for r in rows[1:])
+
+            def spread(k):
+                v = [r[k] for r in rows[1:]]
+                return (f"{k} {np.mean(v):.3f} / {np.median(v):.3f} "
+                        f"[{min(v):.3f}-{max(v):.3f}]")
+            keys = ("render", "upload", "kernel") + (
+                ("paste_hsv", "mix_flip") if method == "canvas" else ())
+            log("train", f"{run}, steps 2..{TRAIN_STEPS}, mean / median "
+                "[min-max] (ms; render = the whole render_batch span, "
+                "upload = the host arrays it sends up, kernel = the render "
+                "or warp launch; step = forward + loss + backward + "
+                "optimizer; wait = host wait for the loader): "
+                + ", ".join(spread(k) for k in keys + ("step", "wait",
+                                                       "wall", "ips"))
+                + f"; peak {steady['mem']:.2f} GiB; launches "
+                f"{launches[run]} over {TRAIN_STEPS} steps")
+            results[run] = steady
     finally:
-        for k, v in saved.items():
-            setattr(da, k, v)
-    launches = cuda_warp.LAUNCHES["warp"]
-    check(launches > 0, "warp kernel never launched in training")
-    log("train", f"warp launches {launches} over {2 * TRAIN_STEPS} steps")
-    return dict(launches=launches, results=results)
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+    taps = sum(v["render"] for k, v in launches.items() if k.endswith("taps"))
+    canvas = launches["tile bank, canvas"]["warp"]
+    check(taps == 2 * TRAIN_STEPS and canvas == TRAIN_STEPS,
+          f"launches {launches}")
+    return dict(render_launches=taps, warp_launches=canvas, results=results)
 
 
 def phase_train_card_vs_cpu(split, names, cfg):
@@ -749,14 +985,18 @@ def phase_train_card_vs_cpu(split, names, cfg):
                           drop_last=True, seed=SEED + 4, workers=2,
                           device_augment=True)
     batch = next(iter(loader))
-    got = render_batch(batch, 2, device="cuda").cpu()
-    want = render_batch(batch, 2, device="cpu")
+    # the taps route: the render kernel on the card, its plain version on
+    # the CPU (the same float32 operations: bit for bit expected; bound:
+    # tests/test_pallas_warp.py:32-36)
+    got = render_batch(batch, 2, device="cuda", method="taps").cpu()
+    want = render_batch(batch, 2, device="cpu", method="taps")
     diff = (torch.round(got * 255) - torch.round(want * 255)).abs()
     n_diff, err = int((diff > 0).sum()), float(diff.max())
     check(err <= 1 and n_diff <= 1e-3 * diff.numel(), (n_diff, err))
-    log("card_vs_cpu", f"render at 256 px, batch 2 (+{len(batch['spec_minv']) - 2}"
-        f" partner slots): {n_diff} of {diff.numel()} values differ, max "
-        f"{err:.0f}/255")
+    log("card_vs_cpu", f"render (taps) at 256 px, batch 2 (+"
+        f"{len(batch['spec_minv']) - 2} partner slots): {n_diff} of "
+        f"{diff.numel()} values differ, max {err:.0f}/255; bit-equal: "
+        f"{torch.equal(got, want)}")
 
     cpu = Trainer(train_model(cfg, "cpu"), train_loss_fn(cfg, "cpu"), "SGD",
                   lr)
@@ -1055,6 +1295,7 @@ def main():
     check_launches = cuda_iou.LAUNCHES["rotated_iou"]
     nms = phase_nms_kernels()
     warp = phase_warp_kernel()
+    render = phase_render_kernel()
     cfg = load_yaml(os.path.join(REPO, "configs", "hyp.yaml"))
     names = load_yaml(os.path.join(REPO, "configs", "DOTA.yaml"))["names"]
     model = build_model(cfg)
@@ -1094,10 +1335,21 @@ def main():
         "name": "warp", "route": "cuda",
         "source": "ryolo_tpu_torch/ops/csrc/warp.cu",
         "replaces": "ryolo_tpu/ops/pallas_warp.py:107",
-        "launches": train["launches"], "max_abs_err": warp["max_abs_err"],
+        "launches": train["warp_launches"],
+        "max_abs_err": warp["max_abs_err"],
         "ms": warp["ms"], "plain_ms": warp["plain_ms"],
         "bound_ms": warp["bound_ms"], "bound_by": warp["bound_by"],
-        "library_ms": warp["library_ms"]}]}), flush=True)
+        "library_ms": warp["library_ms"]}, {
+        "name": "render", "route": "cuda",
+        "source": "ryolo_tpu_torch/ops/csrc/render.cu",
+        "replaces": "ryolo_tpu/ops/pallas_warp.py:107 (B2 redesigned: with "
+                    "ryolo_tpu/data/device_augment.py:298, :365 and :648 "
+                    "around it)",
+        "launches": train["render_launches"],
+        "max_abs_err": render["max_abs_err"],
+        "ms": render["ms"], "plain_ms": render["plain_ms"],
+        "bound_ms": render["bound_ms"], "bound_by": render["bound_by"],
+        "library_ms": None}]}), flush=True)
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

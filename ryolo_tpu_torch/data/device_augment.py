@@ -3,27 +3,38 @@ and flips, rendered from the loader's specs on the device.
 
 Counterpart of ``ryolo_tpu/data/device_augment.py``.  The host builds
 render specs (:meth:`ryolo_tpu_torch.data.datasets.BaseDataset.get_render_spec`)
-and keeps only decode and label math; per batch the device
+and keeps only decode and label math.  Two routes render a batch, as the
+JAX package's ``method`` argument selects (``render_specs`` :528):
 
-1. pastes each live spec's tiles into its ``(C, C)`` canvas, C = 2s+2
-   (:func:`_paste_canvas`, ``_paste_canvas`` :298), one slice copy per live
-   slot, ascending slot order, so the last writer owns a cell;
-2. applies each tile's HSV gains through the owner id in the word's top
-   byte (:func:`_hsv_canvas`, :365) -> ``(3, C, C)`` uint8 planar x-major;
-3. warps the canvases to ``(B, 3, s, s)`` with the CUDA kernel that replaces
-   the TPU kernel B2 (:func:`ryolo_tpu_torch.ops.cuda_warp.warp_canvas`;
-   plain version ``ryolo_tpu_torch/ops/warp.py``, the port of
-   ``_warp_block`` :434);
-4. blends mixup partners and flips (:func:`_mix_flip_tail`, :648) and
-   divides by 255.
+* ``method="taps"`` (the default, the training path): one launch of the
+  CUDA tap renderer (:func:`ryolo_tpu_torch.ops.cuda_render.render_taps`,
+  ``ops/csrc/render.cu``), the redesign of the TPU kernel B2 for the card.
+  Each output pixel's 4 bilinear taps resolve their owning slot and read
+  the packed tile word straight from the uploaded tiles or the tile bank,
+  with the slot's HSV gains, mixup, flips and /255 in the same thread; no
+  canvas is built.  It computes what the JAX package's "taps" renderer
+  (``_render_one`` :175, then ``_mix_flip_tail`` :648) computes; on the CPU
+  the plain version ``ryolo_tpu_torch/ops/render.py`` runs.
+* ``method="canvas"``: the canvas route, the counterpart of JAX
+  ``method="canvas"``/``"pallas"``.  Per batch the device
 
-Mixup-partner slots that no base slot references are not built: the warp
-PAD-fills them (``_render_pallas`` :485).  The paste covers every live slot
-up to the highest one: the JAX canvas path counts live regions and pastes
-that many slots, which drops the last live slot when a mosaic-9 crop leaves
-a zero-area region in the middle (a reference finding, ROADMAP §C); the
-port equals the JAX package's "taps" renderer (``_render_one`` :175), which
-resolves every tap's owner directly and is the tests' reference.
+  1. pastes each live spec's tiles into its ``(C, C)`` canvas, C = 2s+2
+     (:func:`_paste_canvas`, ``_paste_canvas`` :298), one slice copy per
+     live slot, ascending slot order, so the last writer owns a cell;
+  2. applies each tile's HSV gains through the owner id in the word's top
+     byte (:func:`_hsv_canvas`, :365) -> ``(3, C, C)`` uint8 planar x-major;
+  3. warps the canvases to ``(B, 3, s, s)`` with the CUDA kernel B2
+     (:func:`ryolo_tpu_torch.ops.cuda_warp.warp_canvas`; plain version
+     ``ryolo_tpu_torch/ops/warp.py``, the port of ``_warp_block`` :434);
+  4. blends mixup partners and flips (:func:`_mix_flip_tail`, :648) and
+     divides by 255.
+
+  Mixup-partner slots that no base slot references are not built: the
+  warp PAD-fills them (``_render_pallas`` :485).  The paste covers every
+  live slot up to the highest one: the JAX canvas path counts live regions
+  and pastes that many slots, which drops the last live slot when a
+  mosaic-9 crop leaves a zero-area region in the middle (a reference
+  finding, ROADMAP §C); the port's canvas route equals the taps renderer.
 
 Spec layouts (B specs, T = ``datasets.MAX_TILES`` slots, s = img_size), numpy from the
 loader: ``tiles`` (B, T, s, s) int32 packed RGB x-major (``tiles[b, t, x,
@@ -33,9 +44,9 @@ y]`` = R | G<<8 | B<<16 of pixel (row y, col x), content top-left), or
 canvas -> source translation; ``hsv`` (B, T, 3) gains; ``minv`` (B, 2, 3)
 output -> canvas affine; ``flip`` (n_out, 2); ``mix_idx`` (n_out,) partner
 slot or -1; ``mix_r`` (n_out,) blend weight.  The geometry (regions,
-offsets, bank rows, mixup and flips) stays on the host and decides which
-copies run, so a render needs no host sync.  Output: ``(n_out, 3, s, s)``
-float32 NCHW RGB in [0, 1] on the device.
+offsets, bank rows, mixup and flips) stays on the host, so a render needs
+no host sync.  Output: ``(n_out, 3, s, s)`` float32 NCHW RGB in [0, 1] on
+the device.
 """
 
 from __future__ import annotations
@@ -46,74 +57,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ryolo_tpu_torch.ops.cuda_render import render_taps
 from ryolo_tpu_torch.ops.cuda_warp import warp_canvas
+from ryolo_tpu_torch.ops.hsv import _hsv_jitter_planar, hsv_jitter  # noqa: F401
+from ryolo_tpu_torch.ops.render import (PAD, to_device,  # noqa: F401
+                                        mix_flip_tail as _mix_flip_tail)
 
-PAD = 114.0            # letterbox / border value
 _PAD_U8 = int(PAD)
-
-
-def _recip(c: float) -> float:
-    return float(np.float32(1.0) / np.float32(c))
-
-
-# XLA compiles a division by a constant as a multiplication by its float32
-# reciprocal, and CUDA PyTorch divides by a host scalar the same way; the
-# port multiplies by the reciprocal on every device, so the CPU, the card
-# and the jitted JAX renderer agree bit for bit.
-_RCP30, _RCP255 = _recip(30.0), _recip(255.0)
-
-
-def _select(i, values, default):
-    """``jnp.select([i == 0, i == 1, ...], values, default)``."""
-    out = default
-    for k in range(len(values) - 1, -1, -1):
-        out = torch.where(i == k, values[k], out)
-    return out
-
-
-def _hsv_jitter_planar(r, g, b, gh, gs, gv):
-    """HSV jitter with the reference's uint8-LUT semantics on channel planes
-    (``_hsv_jitter_planar`` :129: the same float32 expressions in the same
-    order).  Returns the (r, g, b) planes, rounded."""
-    mx = torch.maximum(torch.maximum(r, g), b)
-    mn = torch.minimum(torch.minimum(r, g), b)
-    d = mx - mn
-    safe = torch.where(d > 0, d, 1.0)
-    h = torch.where(mx == r, (g - b) / safe,
-                    torch.where(mx == g, 2.0 + (b - r) / safe,
-                                4.0 + (r - g) / safe))
-    h = torch.where(d > 0, h * 30.0, 0.0)
-    h = torch.where(h < 0, h + 180.0, h)
-    h = torch.round(h)
-    h = torch.where(h >= 180.0, 0.0, h)
-    s = torch.round(torch.where(mx > 0, 255.0 * d / torch.where(mx > 0, mx, 1.0),
-                                0.0))
-    v = mx
-    # the jitter: hue wraps at 180, saturation and value clip at 255
-    h = torch.floor(h * gh) % 180.0
-    s = torch.clamp(torch.floor(s * gs), 0.0, 255.0)
-    v = torch.clamp(torch.floor(v * gv), 0.0, 255.0)
-    # back to RGB (cv2's 8-bit convention)
-    h6 = h * _RCP30
-    i = torch.floor(h6)
-    f = h6 - i
-    sf = s * _RCP255
-    p = v * (1.0 - sf)
-    q = v * (1.0 - sf * f)
-    t = v * (1.0 - sf * (1.0 - f))
-    i = i.to(torch.int32) % 6
-    ro = _select(i, [v, q, p, p, t], v)
-    go = _select(i, [t, v, v, q, p], p)
-    bo = _select(i, [p, p, t, v, v], q)
-    return torch.round(ro), torch.round(go), torch.round(bo)
-
-
-def hsv_jitter(rgb: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
-    """:func:`_hsv_jitter_planar` on ``(..., 3)`` RGB; ``gains`` ``(..., 3)``
-    (``hsv_jitter`` :114)."""
-    r, g, b = _hsv_jitter_planar(rgb[..., 0], rgb[..., 1], rgb[..., 2],
-                                 gains[..., 0], gains[..., 1], gains[..., 2])
-    return torch.stack([r, g, b], -1)
+METHODS = ("taps", "canvas")
 
 
 def _paste_canvas(tile_of: Callable[[int], torch.Tensor], region: np.ndarray,
@@ -200,36 +151,14 @@ def _canvases(tile_of: Callable[[int, int], torch.Tensor], region, offset,
     return canvas
 
 
-def _mix_flip_tail(imgs: torch.Tensor, flip: np.ndarray, mix_idx: np.ndarray,
-                   mix_r: np.ndarray, n_out: int) -> torch.Tensor:
-    """Mixup (float blend, then floor as the reference's uint8 truncation),
-    flips, /255 (``_mix_flip_tail`` :648).  ``imgs`` ``(B, 3, s, s)``
-    float32 integers in [0, 255] -> ``(n_out, 3, s, s)`` in [0, 1]."""
-    out = imgs[:n_out].clone()
-    for b in range(n_out):
-        j = int(mix_idx[b])
-        if j >= 0:
-            r = np.float32(mix_r[b])
-            out[b] = torch.floor(imgs[b] * float(r)
-                                 + imgs[j] * float(np.float32(1.0) - r))
-        if flip[b, 0]:
-            out[b] = out[b].flip(-1)
-        if flip[b, 1]:
-            out[b] = out[b].flip(-2)
-    return out * _RCP255
-
-
-def to_device(a: np.ndarray, device) -> torch.Tensor:
-    """Host array -> device tensor, through pinned memory and without
-    blocking the host when the device is a card."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if torch.device(device).type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
+def _check_method(method: str):
+    if method not in METHODS:
+        raise ValueError(f"unknown render method {method!r}; one of {METHODS}")
 
 
 def _render(tile_of, region, offset, hsv, minv, flip, mix_idx, mix_r, n_out,
             out_size, device):
+    """The canvas route: paste, HSV, the warp kernel, mixup and flips."""
     active = _active(mix_idx, n_out, region.shape[0])
     canvas = _canvases(tile_of, region, offset, to_device(hsv, device),
                        active, out_size, device)
@@ -239,34 +168,44 @@ def _render(tile_of, region, offset, hsv, minv, flip, mix_idx, mix_r, n_out,
 
 
 def render_specs(tiles, region, offset, hsv, minv, flip, mix_idx, mix_r,
-                 n_out: int, device="cuda"):
+                 n_out: int, device="cuda", method: str = "taps"):
     """Render a batch of pixel specs -> ``(n_out, 3, s, s)`` float32 in
-    [0, 1] on ``device`` (``render_specs`` :528): paste, HSV, the warp
-    kernel, mixup and flips.  Spec slots >= ``n_out`` are mixup partners
-    only."""
-    s = tiles.shape[3]
+    [0, 1] on ``device`` (``render_specs`` :528).  Spec slots >= ``n_out``
+    are mixup partners only."""
+    _check_method(method)
+    B, T, s = tiles.shape[:3]
     tiles = to_device(tiles, device)
+    if method == "taps":
+        slot_rows = np.arange(B * T, dtype=np.int64).reshape(B, T)
+        return render_taps(tiles.view(B * T, s, s), slot_rows, region,
+                           offset, hsv, minv, flip, mix_idx, mix_r, n_out)
     return _render(lambda b, k: tiles[b, k], region, offset, hsv, minv, flip,
                    mix_idx, mix_r, n_out, s, device)
 
 
 def render_specs_banked(bank: torch.Tensor, tile_idx, region, offset, hsv,
-                        minv, flip, mix_idx, mix_r, n_out: int):
+                        minv, flip, mix_idx, mix_r, n_out: int,
+                        method: str = "taps"):
     """:func:`render_specs` with tiles read from a device-resident bank
     ``(N, s, s)`` int32 (``render_specs_banked`` :561), on the bank's
     device; ``tile_idx`` ``(B, T)`` names each slot's bank row.  The same
     spec renders the same image through either function."""
+    _check_method(method)
+    if method == "taps":
+        return render_taps(bank, tile_idx, region, offset, hsv, minv, flip,
+                           mix_idx, mix_r, n_out)
     return _render(lambda b, k: bank[int(tile_idx[b, k])], region, offset,
                    hsv, minv, flip, mix_idx, mix_r, n_out, bank.shape[2],
                    bank.device)
 
 
 def render_batch(arrays, n_out: int, bank: Optional[torch.Tensor] = None,
-                 device="cuda"):
+                 device="cuda", method: str = "taps"):
     """Render a loader spec batch (dict of numpy arrays) on ``device``
-    (``render_batch`` :616).  Banked batches carry ``spec_tile_idx`` and
-    need ``bank`` (they render on its device); pixel batches (including a
-    banked loader's overflow fallback) carry ``spec_tiles``."""
+    (``render_batch`` :616) by ``method`` ("taps" or "canvas").  Banked
+    batches carry ``spec_tile_idx`` and need ``bank`` (they render on its
+    device); pixel batches (including a banked loader's overflow fallback)
+    carry ``spec_tiles``."""
     common = (arrays["spec_region"], arrays["spec_offset"],
               arrays["spec_hsv"], arrays["spec_minv"], arrays["spec_flip"],
               arrays["spec_mix_idx"], arrays["spec_mix_r"])
@@ -274,6 +213,6 @@ def render_batch(arrays, n_out: int, bank: Optional[torch.Tensor] = None,
         if bank is None:
             raise ValueError("banked spec batch needs the uploaded tile bank")
         return render_specs_banked(bank, arrays["spec_tile_idx"], *common,
-                                   n_out=n_out)
+                                   n_out=n_out, method=method)
     return render_specs(arrays["spec_tiles"], *common, n_out=n_out,
-                        device=device)
+                        device=device, method=method)

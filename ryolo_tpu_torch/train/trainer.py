@@ -114,15 +114,17 @@ class Trainer:
         return loss.detach(), {k: v.detach() for k, v in items.items()}
 
     def train_step_rendered(self, spec_batch, bank, lr: float,
-                            accumulate: int, n_out: int):
+                            accumulate: int, n_out: int,
+                            method: str = "taps"):
         """Device-side augmentation and :meth:`train_step` in one call:
         the loader's numpy spec batch goes up through pinned memory
         (kilobytes with a tile bank), renders on the current stream
-        (:func:`ryolo_tpu_torch.data.device_augment.render_batch`) and
+        (:func:`ryolo_tpu_torch.data.device_augment.render_batch`; on a
+        card ``method="taps"`` is one launch of the tap renderer) and
         steps, with no host sync in between."""
         dev = next(self.model.parameters()).device
         batch = {"images": render_batch(spec_batch, n_out, bank=bank,
-                                        device=dev)}
+                                        device=dev, method=method)}
         for k in ("tgt", "tgt_csl", "tgt_mask"):
             if k in spec_batch:
                 batch[k] = to_device(spec_batch[k], dev)

@@ -254,9 +254,11 @@ def test_warp_kernel_raises_instead_of_falling_back(cuda):
         warp_canvas(canvas.to(cuda).float(), minv.to(cuda), 16)
 
 
-def test_render_on_card_equals_cpu(cuda):
-    """A spec batch of mosaic-4 layout rendered on the card (kernel) and on
-    the CPU (plain warp): same images."""
+@pytest.mark.parametrize("method", ["taps", "canvas"])
+def test_render_on_card_equals_cpu(cuda, method):
+    """A spec batch of mosaic-4 layout rendered on the card (the render
+    kernel, or the canvas route's warp kernel) and on the CPU (the plain
+    versions): same images."""
     from ryolo_tpu_torch.data.device_augment import render_batch
 
     rng = np.random.default_rng(3)
@@ -277,6 +279,65 @@ def test_render_on_card_equals_cpu(cuda):
                  spec_flip=np.array([[1, 0], [0, 1]], bool),
                  spec_mix_idx=np.array([2, -1], np.int32),
                  spec_mix_r=np.array([0.4, 0], np.float32))
-    got = render_batch(batch, 2, device=cuda)
-    want = render_batch(batch, 2, device="cpu")
+    got = render_batch(batch, 2, device=cuda, method=method)
+    want = render_batch(batch, 2, device="cpu", method=method)
     _warp_equal(got * 255.0, want * 255.0)
+
+
+# -- the tap renderer (B2 redesigned) -----------------------------------------
+# Inputs are chip_smoke.py's (phase 3): loader-shaped mosaic specs with
+# seams, clipped offsets, zero-area slots, identity gains, mixup partners
+# and flips.  The kernel repeats the plain version's float32 operations in
+# the same order: bit-for-bit equality.
+
+@pytest.mark.parametrize("layout", ["pixel", "bank"])
+@pytest.mark.parametrize("b,s", [(12, 800), (6, 64), (3, 33), (1, 1)])
+def test_render_kernel_matches_plain_version(cuda, b, s, layout):
+    from chip_smoke import render_args, render_inputs
+    from ryolo_tpu_torch.ops.cuda_render import LAUNCHES, render_taps
+    from ryolo_tpu_torch.ops.render import render_taps_plain
+
+    n_out = {12: 8, 6: 4, 3: 2, 1: 1}[b]
+    rows, slot_rows, spec = render_inputs(b, s, n_out, layout, b * 1000 + s,
+                                          cuda)
+    if b == 6:  # probe affines: far off the canvas, rank one, no span bound
+        spec["minv"][1] = [[1, 0, 9e6], [0, 1, -3e7]]
+        spec["minv"][2] = [[0.7071, 0.7071, 5], [0.7071, 0.7071, 9]]
+        spec["minv"][3] = [[2.9, -2.7, 60.0], [2.6, 3.1, -40.0]]
+    args = render_args(spec)
+    assert b == 1 or (spec["mix_idx"] >= 0).any()
+    before = LAUNCHES["render"]
+    got = render_taps(rows, slot_rows, *args, n_out)
+    torch.cuda.synchronize()
+    assert LAUNCHES["render"] == before + 1
+    want = render_taps_plain(rows, slot_rows, *args, n_out)
+    assert got.shape == want.shape == (n_out, 3, s, s)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_render_kernel_raises_instead_of_falling_back(cuda, monkeypatch,
+                                                      tmp_path):
+    from chip_smoke import render_args, render_inputs
+    from ryolo_tpu_torch.data.device_augment import render_specs_banked
+    from ryolo_tpu_torch.ops import _build
+    from ryolo_tpu_torch.ops.cuda_render import render_taps
+
+    rows, slot_rows, spec = render_inputs(3, 16, 2, "bank", 0, cuda)
+    args = render_args(spec)
+    with pytest.raises(TypeError):
+        render_taps(rows.float(), slot_rows, *args, 2)
+    bad = slot_rows.copy()
+    bad[0, 0] = rows.shape[0]  # past the bank, in a live slot
+    with pytest.raises(ValueError, match="slot rows"):
+        render_taps(rows, bad, *args, 2)
+    wide = [np.concatenate([a, a], 1) for a in args[:3]]
+    with pytest.raises(ValueError, match="tile slots"):
+        render_taps(rows, np.concatenate([slot_rows] * 2, 1), *wide,
+                    *args[3:], 2)
+    # a kernel that does not build raises; nothing falls back to the CPU
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        render_specs_banked(rows, slot_rows, *args, n_out=2)

@@ -1,8 +1,9 @@
-"""Port device-side augmentation (paste, HSV, the warp's plain version on
-the CPU, mixup and flips) against the JAX package's readable reference
-renderer (``render_specs(..., method="taps")``) on real loader
+"""Port device-side augmentation against the JAX package's readable
+reference renderer (``render_specs(..., method="taps")``) on real loader
 specs: mosaic-4/9, letterbox, mixup partners, flips, banked and pixel
-batches, and unreferenced partner slots.
+batches, and unreferenced partner slots.  Both port routes run on the CPU:
+``method="taps"`` (the tap renderer's plain version) and
+``method="canvas"`` (paste, HSV, the warp's plain version, mixup, flips).
 
 Bound: the warp bound of tests/test_pallas_warp.py:32-36 (max |diff| <= 1
 unit of 1/255, at most 1e-3 of values differ); the port's canvas path and
@@ -41,9 +42,11 @@ def _jax_taps(batch, n_out, bank=None):
                                    bank=bank))
 
 
+@pytest.mark.parametrize("method", ["taps", "canvas"])
 @pytest.mark.parametrize("seed", [21, 33])
 @pytest.mark.parametrize("device_cache", [False, True])
-def test_render_batch_matches_jax_taps(synth, seed, device_cache):  # noqa: F811
+def test_render_batch_matches_jax_taps(synth, seed, device_cache,  # noqa: F811
+                                       method):
     from ryolo_tpu_torch.data.device_augment import render_batch
 
     hyp = dict(HYP, mixup=0.5)  # several partners per batch
@@ -56,11 +59,11 @@ def test_render_batch_matches_jax_taps(synth, seed, device_cache):  # noqa: F811
     n_mix = 0
     for batch in tl:
         n = len(batch["paths"])
-        got = render_batch(batch, n, bank=tbank, device="cpu")
+        got = render_batch(batch, n, bank=tbank, device="cpu", method=method)
         assert got.shape == (n, 3, S, S) and got.dtype == torch.float32
         banked = "spec_tile_idx" in batch
         _assert_close_img(_jax_taps(batch, n, jbank if banked else None),
-                          got, f"seed={seed} cache={device_cache}")
+                          got, f"{method} seed={seed} cache={device_cache}")
         n_mix += int((batch["spec_mix_idx"] >= 0).sum())
     assert n_mix > 0
 
