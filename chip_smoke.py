@@ -35,7 +35,19 @@ Phases, each reported on its own lines:
    a step;
 7. card against CPU, training, at 256 px, batch 2: the same spec batch
    rendered on the card (the render kernel) and on the CPU (its plain
-   version), then one SGD step from the same weights on each.
+   version), then one SGD step from the same weights on each;
+8. eval path: the ``test`` CLI (``Test(args).run()``) with phase 4's
+   weights on a 32-image synthetic DOTA val split at 800 px, batch 8, conf
+   0.001, iou 0.65, in f32 and in bf16, each once to warm up and once
+   timed: images/s from the first batch request to the AP table, the
+   spans of each batch, the host syncs per batch, one ``nms_mask`` and one
+   ``nms_scan`` launch per batch;
+9. card against CPU, eval, at 256 px, batch 2, on 4 images: the four
+   metrics and the val loss;
+10. the ``train`` CLI in-process on a 16-image train and an 8-image val
+   split at 800 px, batch 8, with the tap renderer and the tile bank: one
+   epoch, then ``--resume`` to a second; the epoch split into steps, eval
+   and saves, one ``render`` launch per step, checkpoints that load.
 
 Then one JSON line with every kernel's numbers and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -49,7 +61,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 import warnings
 from argparse import Namespace
 
@@ -776,14 +790,14 @@ def phase_render_kernel():
     return dict(max_abs_err=max_err, **rep["bank"], pixel=rep["pixel"])
 
 
-def write_dota_split(root, names, rng):
-    """A DOTA-format split: ``images/*.png`` (1024 px) and
+def write_dota_split(root, names, rng, n=TRAIN_IMAGES):
+    """A DOTA-format split of ``n`` images: ``images/*.png`` (1024 px) and
     ``annfiles/*.txt`` rows ``x1 y1 .. x4 y4 class-name difficulty``."""
     import cv2
 
     for d in ("images", "annfiles"):
         os.makedirs(os.path.join(root, d))
-    for i in range(TRAIN_IMAGES):
+    for i in range(n):
         img = rng.integers(0, 70, (1024, 1024, 3), dtype=np.uint8)
         rows = []
         for _ in range(int(rng.integers(8, 30))):
@@ -1277,6 +1291,420 @@ def phase_card_vs_cpu(model):
         f"{theta_err:.1e}); knife-edge pairs {n_edge}")
 
 
+EVAL_IMAGES, CLI_TRAIN, CLI_VAL = 32, 16, 8
+EVAL_SPANS = ("wait", "upload", "forward", "decode", "post", "mask", "scan",
+              "loss", "fetch", "matcher")
+
+
+class Spans:
+    """Spans of one run: CUDA event pairs (issuing thread) and host-clock
+    seconds (any thread) by key, and the host syncs PyTorch reports while
+    ``torch.cuda.set_sync_debug_mode("warn")`` is on, by thread."""
+
+    def __init__(self):
+        self.events, self.host, self.syncs = {}, {}, []
+        self.sites = {}  # the port's innermost line of each sync: count
+        self.first = self.last = None
+
+    def cuda(self, key, fn):
+        def wrapped(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            self.events.setdefault(key, []).append((s, e))
+            return out
+        return wrapped
+
+    def clock(self, key, fn):
+        def wrapped(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.last = time.perf_counter()
+                self.host.setdefault(key, []).append((self.last - t) * 1e3)
+        return wrapped
+
+    def ms(self, key):
+        """Per-call ms of ``key`` (read after a device sync)."""
+        if key in self.events:
+            return [s.elapsed_time(e) for s, e in self.events[key]]
+        return self.host.get(key, [])
+
+    def sync_counted(self, fn):
+        def wrapped(*a, **kw):
+            main = threading.get_ident()
+
+            def show(message, *_a, **_kw):
+                if "called a synchronizing" in str(message):
+                    self.syncs.append(threading.get_ident() == main)
+                    site = [f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                            for f in traceback.extract_stack()
+                            if "ryolo_tpu_torch" in f.filename]
+                    key = site[-1] if site else "outside the port"
+                    self.sites[key] = self.sites.get(key, 0) + 1
+
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = show
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        return wrapped
+
+
+class TimedLoader:
+    """A loader whose every ``next`` is timed as ``wait`` (host clock);
+    the first request starts the run's wall clock."""
+
+    def __init__(self, loader, spans):
+        self.loader, self.spans = loader, spans
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t = time.perf_counter()
+            if self.spans.first is None:
+                self.spans.first = t
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.spans.host.setdefault("wait", []).append(
+                (time.perf_counter() - t) * 1e3)
+            yield batch
+
+
+def patched(pairs):
+    """Set module attributes for a ``with`` block, restoring them after."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(m, k, getattr(m, k)) for m, k, _ in pairs]
+        for m, k, v in pairs:
+            setattr(m, k, v)
+        try:
+            yield
+        finally:
+            for m, k, v in saved:
+                setattr(m, k, v)
+    return ctx()
+
+
+def eval_spans(spans):
+    """The eval path's instrumentation: every stage of a batch, on the
+    modules that ``ryolo_tpu_torch.test`` drives."""
+    import ryolo_tpu_torch.eval.evaluator as ev
+    import ryolo_tpu_torch.nn.yolo as yolo_mod
+    import ryolo_tpu_torch.test as test_mod
+    import ryolo_tpu_torch.train.trainer as trainer_mod
+    from ryolo_tpu_torch.ops import cuda_nms
+
+    load = ev.load_data
+
+    def load_data(*a, **kw):
+        dataset, loader = load(*a, **kw)
+        return dataset, TimedLoader(loader, spans)
+
+    return patched([
+        (ev, "load_data", load_data),
+        (ev, "upload", spans.cuda("upload", ev.upload)),
+        (yolo_mod.Yolo, "forward", spans.cuda("forward",
+                                              yolo_mod.Yolo.forward)),
+        (yolo_mod, "decode_csl_defer", spans.cuda(
+            "decode", yolo_mod.decode_csl_defer)),
+        (ev, "post_process_defer", spans.cuda("post", ev.post_process_defer)),
+        (cuda_nms, "nms_mask", spans.cuda("mask", cuda_nms.nms_mask)),
+        (cuda_nms, "nms_scan", spans.cuda("scan", cuda_nms.nms_scan)),
+        (trainer_mod, "csl_loss", spans.cuda("loss", trainer_mod.csl_loss)),
+        (ev, "_fetch", spans.clock("fetch", ev._fetch)),
+        (ev, "get_batch_statistics", spans.clock("matcher",
+                                                 ev.get_batch_statistics)),
+        (ev, "calculate_eval_stats", spans.clock("ap",
+                                                 ev.calculate_eval_stats)),
+        (test_mod, "evaluate", spans.sync_counted(test_mod.evaluate)),
+    ])
+
+
+def phase_eval(tmp, names, weights):
+    """The ``test`` CLI's ``Test(args).run()`` on a 32-image DOTA val split
+    at 800 px, batch 8, conf 0.001, iou 0.65: f32 (TF32 off), then bf16;
+    each once to warm up and once timed."""
+    from ryolo_tpu_torch.ops import cuda_nms
+    from ryolo_tpu_torch.test import Test
+
+    split = os.path.join(tmp, "dota_val")
+    write_dota_split(split, names, np.random.default_rng(SEED + 8),
+                     EVAL_IMAGES)
+    data = os.path.join(tmp, "eval.yaml")
+    with open(data, "w") as f:
+        json.dump({"type": "DOTA", "val": split, "names": names}, f)
+    results, launches = {}, {"nms_mask": 0, "nms_scan": 0}
+    n_batches = -(-EVAL_IMAGES // BATCH)
+    for dtype in ("f32", "bf16"):
+        for run in ("warm-up", "timed"):
+            args = Namespace(
+                weight_path=weights, mode="csl", ver="yolov7",
+                conf_thres=0.001, iou_thres=0.65, batch_size=BATCH,
+                img_size=IMG, data=data,
+                hyp=os.path.join(REPO, "configs", "hyp.yaml"),
+                max_targets=300, dtype=dtype, device="cuda")
+            spans = Spans()
+            # this run's launches only: every count set to 0 just before
+            for key in cuda_nms.LAUNCHES:
+                cuda_nms.LAUNCHES[key] = 0
+            with eval_spans(spans):
+                mp, mr, map50, map5095, items = Test(args).run()
+            got = dict(cuda_nms.LAUNCHES)
+            torch.cuda.synchronize()
+            for key in launches:
+                launches[key] += got[key]
+            check(got == {"nms_mask": n_batches, "nms_scan": n_batches},
+                  f"eval {dtype} {run}: launches {got} over {n_batches} "
+                  "batches")
+            per_batch = {k: spans.ms(k) for k in EVAL_SPANS}
+            check(all(len(per_batch[k]) == n_batches for k in
+                      ("upload", "forward", "post", "mask", "scan", "loss",
+                       "matcher")), {k: len(v) for k, v in per_batch.items()})
+            metrics = (mp, mr, map50, map5095)
+            check(all(0.0 <= v <= 1.0 for v in metrics), metrics)
+            check(len(items) == 5 and all(math.isfinite(v)
+                                          for v in items.values()), items)
+            wall = spans.last - spans.first
+            ips = EVAL_IMAGES / wall
+            main_syncs = sum(spans.syncs) / n_batches
+            worker_syncs = (len(spans.syncs) - sum(spans.syncs)) / n_batches
+            fwd = [f - d for f, d in zip(per_batch["forward"],
+                                         per_batch["decode"])]
+            per_batch["forward"] = fwd  # the forward without the decode
+            log("eval", f"{dtype} {run}: {EVAL_IMAGES} images, {n_batches} "
+                f"batches of {BATCH} at {IMG} px; {ips:.2f} images/s from "
+                f"the first batch request to the AP table ({wall:.3f} s); "
+                f"launches {got}; host syncs per batch {main_syncs:.2f} on "
+                f"the issuing thread, {worker_syncs:.2f} in the matcher "
+                f"threads; P {mp:.4g} R {mr:.4g} mAP@.5 {map50:.4g} "
+                f"mAP@.5:.95 {map5095:.4g}; val loss " + ", ".join(
+                    f"{k} {v:.4g}" for k, v in items.items()))
+            if run == "timed":
+                log("eval", f"{dtype}: host syncs by the port's line that "
+                    f"made them, over {n_batches} batches: {spans.sites}")
+                for b in range(n_batches):
+                    log("eval", f"{dtype} batch {b + 1} ms: " + ", ".join(
+                        f"{k} {per_batch[k][b]:.3f}" for k in EVAL_SPANS
+                        if b < len(per_batch[k])))
+                med = {k: float(np.median(v[1:])) for k, v in
+                       per_batch.items() if len(v) > 1}
+                med["ap"] = spans.ms("ap")[0]
+                log("eval", f"{dtype}: median ms of batches 2..{n_batches} "
+                    "(wait = loader, host clock; upload, forward, decode, "
+                    "post (= post-process, of it mask and scan), loss: CUDA "
+                    "events; fetch and matcher: host clock in the matcher "
+                    "threads; ap: host clock, once): " + ", ".join(
+                        f"{k} {v:.3f}" for k, v in med.items()))
+                results[dtype] = dict(ips=ips, wall=wall, med=med,
+                                      syncs=main_syncs,
+                                      worker_syncs=worker_syncs,
+                                      metrics=metrics)
+    return dict(launches=launches, results=results)
+
+
+def phase_eval_card_vs_cpu(tmp, names, model, cfg):
+    """``evaluate`` on 4 images at 256 px, batch 2, on the card and on the
+    CPU with the same weights (conf 0.001, iou 0.65, up to 1000 candidates
+    and 300 kept per image): the four metrics and the val loss."""
+    import ryolo_tpu_torch.eval.evaluator as ev
+    from ryolo_tpu_torch.eval.postprocess import MAX_WH
+    from ryolo_tpu_torch.nn import fuse_for_inference
+    from ryolo_tpu_torch.ops.cuda_iou import pairwise_rotated_iou
+    from ryolo_tpu_torch.ops.rotated_iou import pairwise_rotated_iou_plain
+
+    # the normalised batch: the card's /255 (by table) equals the host's
+    x = torch.randint(0, 256, (BATCH, IMG, IMG, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(SEED + 9))
+    table = torch.from_numpy(ev._DIV255)
+    got = ev._norm_images(x.cuda(), table.cuda()).cpu()
+    host = torch.from_numpy(x.numpy().astype(np.float32) / np.float32(255))
+    check(torch.equal(got, ev._norm_images(x, table))
+          and torch.equal(got, host.permute(0, 3, 1, 2)),
+          "uint8 /255 on the card differs from the host's")
+    log("eval_card_vs_cpu", f"uint8 batch {tuple(x.shape)} normalised on "
+        "the card: bit-equal to the CPU's float32 division by 255")
+
+    split = os.path.join(tmp, "dota_val4")
+    write_dota_split(split, names, np.random.default_rng(SEED + 9), 4)
+    data = {"type": "DOTA", "val": split, "names": names}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        seen = []
+        stats = ev.get_batch_statistics
+
+        def spy(outputs, *a):
+            seen.extend(np.asarray(o) for o in outputs)
+            return stats(outputs, *a)
+
+        with patched([(ev, "get_batch_statistics", spy)]):
+            # max_nms 1000: the CPU's plain NMS mask grows with its square
+            res = ev.evaluate(
+                fuse_for_inference(model, device=dev),
+                train_loss_fn(cfg, dev), data, cfg["hyp"], True, 256, 2,
+                0.001, 0.65, max_nms=1000, max_det=300, progress=False,
+                device=dev)
+        out[dev] = (res, seen)
+    (card, d_card), (cpu, d_cpu) = out["cuda"], out["cpu"]
+    worst = max(abs(card[4][k] / cpu[4][k] - 1) for k in cpu[4])
+    check(worst <= 1e-4, {k: (cpu[4][k], card[4][k]) for k in cpu[4]})
+    diff = float(np.abs(np.array(card[:4]) - np.array(cpu[:4])).max())
+    # knife edges: NMS pairs whose kernel and plain IoU lie on opposite
+    # sides of 0.65 within 1e-3, and rows of one class whose scores are
+    # within 1e-5 and trade places (the forwards differ by rounding)
+    n_nms_edge = n_swaps = 0
+    same_sets = True
+    for g, w in zip(d_card, d_cpu):
+        if g.shape != w.shape or not np.array_equal(np.sort(g[:, 6]),
+                                                    np.sort(w[:, 6])):
+            same_sets = False
+            rows = torch.from_numpy(np.concatenate([g, w]))
+            boxes = torch.stack([rows[:, 0] + rows[:, 6] * MAX_WH,
+                                 rows[:, 1] + rows[:, 6] * MAX_WH,
+                                 rows[:, 2], rows[:, 3],
+                                 rows[:, 4] * (180.0 / np.pi)], -1)
+            k = pairwise_rotated_iou(boxes.cuda()[None],
+                                     boxes.cuda()[None])[0].cpu()
+            p = pairwise_rotated_iou_plain(boxes[None], boxes[None])[0]
+            n_nms_edge += int((((k > 0.65) != (p > 0.65))
+                               & ((k - 0.65).abs() < 1e-3)
+                               & ((p - 0.65).abs() < 1e-3)).sum())
+            continue
+        order = np.abs(g[:, None, :4] - w[None, :, :4]).max(-1).argmin(1)
+        moved = order != np.arange(len(g))
+        n_swaps += int(moved.sum())
+        check(np.abs(g[moved, 5] - w[moved, 5]).max(initial=0) <= 1e-5,
+              "rows trade places with scores apart")
+    if diff > 1e-6:
+        check(n_nms_edge > 0 or n_swaps > 0,
+              f"metrics differ by {diff} without a knife-edge pair")
+    log("eval_card_vs_cpu", f"4 images at 256 px, batch 2: card "
+        f"{[round(float(v), 8) for v in card[:4]]}, CPU "
+        f"{[round(float(v), 8) for v in cpu[:4]]}: max difference {diff:.2e}"
+        f" (bound 1e-6 unless a knife-edge pair is named); equal keep sets "
+        f"{same_sets}; knife-edge NMS pairs {n_nms_edge}, rows trading places"
+        f" with scores within 1e-5 {n_swaps}; detections per image "
+        f"{[len(d) for d in d_card]}; val loss items within {worst:.2e} "
+        "(rtol 1e-4)")
+
+
+def phase_train_cli(tmp, names, cfg):
+    """The ``train`` CLI in-process: 1 epoch at 800 px, batch 8, with the
+    tap renderer and the tile bank, then ``--resume`` to 2 epochs."""
+    import ryolo_tpu_torch.train.__main__ as cli
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.ops import cuda_render
+    from ryolo_tpu_torch.train import Trainer
+    from ryolo_tpu_torch.utils.checkpoint import load_pth
+
+    root = os.path.join(tmp, "cli")
+    write_dota_split(os.path.join(root, "train"), names,
+                     np.random.default_rng(SEED + 10), CLI_TRAIN)
+    write_dota_split(os.path.join(root, "val"), names,
+                     np.random.default_rng(SEED + 11), CLI_VAL)
+    data = os.path.join(root, "data.yaml")
+    with open(data, "w") as f:
+        json.dump({"type": "DOTA", "train": os.path.join(root, "train"),
+                   "val": os.path.join(root, "val"), "names": names}, f)
+    spans = Spans()
+    epochs, per_step, metrics = [], [], []
+    step = Trainer.train_step_rendered
+
+    def counted_step(self, *a, **kw):
+        before = cuda_render.LAUNCHES["render"]
+        res = step(self, *a, **kw)
+        per_step.append(cuda_render.LAUNCHES["render"] - before)
+        return res
+
+    train_epoch, evaluate = cli.Train._train_epoch, cli.evaluate
+
+    def spy_epoch(self, trainer, loader, bank, epoch, *a):
+        epochs.append(epoch)
+        return train_epoch(self, trainer, loader, bank, epoch, *a)
+
+    def spy_eval(*a, **kw):
+        res = evaluate(*a, **kw)
+        metrics.append(res)
+        return res
+
+    launches = 0
+    for n_epochs, resume in ((1, False), (2, True)):
+        args = Namespace(
+            epochs=n_epochs, optimizer="SGD", lr=0.01, batch_size=BATCH,
+            img_size=IMG, weights_path="", model_name="smoke", mode="csl",
+            ver="yolov7", data=data,
+            config=os.path.join(REPO, "configs", "hyp.yaml"), max_targets=300,
+            yes=True, resume=resume, profile=False, dtype="f32",
+            device_augment=True, cache_images=False, device_cache=True,
+            dp=1, sp=1, device="cuda")
+        run = f"--epochs {n_epochs}" + (" --resume" if resume else "")
+        spans.host.clear()
+        # this run's launches only: the count set to 0 just before
+        cuda_render.LAUNCHES["render"] = 0
+        cwd = os.getcwd()
+        os.chdir(root)
+        t0 = time.perf_counter()
+        try:
+            with patched([
+                    (Trainer, "train_step_rendered", counted_step),
+                    (cli.Train, "_train_epoch",
+                     spans.clock("steps", spy_epoch)),
+                    (cli, "evaluate", spans.clock("eval", spy_eval)),
+                    (cli, "fuse_for_inference",
+                     spans.clock("fuse", cli.fuse_for_inference)),
+                    (cli, "save_pth", spans.clock("save_pth", cli.save_pth)),
+                    (cli, "save_train_state",
+                     spans.clock("save_state", cli.save_train_state))]):
+                cli.Train(args).train()
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t0
+        launches += cuda_render.LAUNCHES["render"]
+        split = {k: sum(v) for k, v in spans.host.items()}
+        log("train_cli", f"{run}: {wall:.3f} s in all; the epoch: steps "
+            f"{split['steps']:.1f} ms ({CLI_TRAIN // BATCH} steps, the "
+            f"loader included), fuse {split['fuse']:.1f} ms, eval "
+            f"{split['eval']:.1f} ms ({CLI_VAL} images at batch "
+            f"{2 * BATCH}), saves {split['save_pth']:.1f} ms (.pth) + "
+            f"{split['save_state']:.1f} ms (last.state); render launches "
+            f"{cuda_render.LAUNCHES['render']}; metrics "
+            f"{[round(float(v), 6) for v in metrics[-1][:4]]}, val loss "
+            + ", ".join(f"{k} {v:.4g}" for k, v in metrics[-1][4].items()))
+    steps = CLI_TRAIN // BATCH
+    check(epochs == [0, 1], f"epochs trained {epochs} (the resume must "
+          "start at epoch 2)")
+    check(per_step == [1] * 2 * steps, f"render launches per step "
+          f"{per_step}")
+    check(all(math.isfinite(v) for m in metrics for v in m[:4])
+          and all(math.isfinite(v) for m in metrics for v in m[4].values()),
+          metrics)
+    out = os.path.join(root, "weights", "smoke")
+    for name in ("best.pth", "last.pth", "last.state", "opt.json"):
+        check(os.path.isfile(os.path.join(out, name)), name)
+    check(os.listdir(os.path.join(out, "logs")), "no logs")
+    fresh = Yolo(NC, cfg["model"], mode="csl", ver="yolov7")
+    fresh.load_state_dict(load_pth(os.path.join(out, "last.pth")),
+                          strict=True)
+    log("train_cli", f"files {sorted(os.listdir(out))}, logs "
+        f"{sorted(os.listdir(os.path.join(out, 'logs')))}; last.pth loads "
+        "strict=True into a fresh Yolo; epochs trained [1] then [2] "
+        "(resumed); one render launch in each of the "
+        f"{len(per_step)} steps")
+    return dict(render_launches=launches)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1302,14 +1730,23 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         main_res = phase_main_path(tmp, model)
         phase_card_vs_cpu(model)
+        evals = phase_eval(tmp, names, os.path.join(tmp, "w.pth"))
+        phase_eval_card_vs_cpu(tmp, names, model, cfg)
         del model
         split = os.path.join(tmp, "dota_train")
         write_dota_split(split, names, np.random.default_rng(SEED + 2))
         train = phase_train(split, names, cfg)
         phase_train_card_vs_cpu(split, names, cfg)
+        cli = phase_train_cli(tmp, names, cfg)
 
-    launches = {key: sum(r["launches"][key] for r in main_res.values())
-                for key in ("nms_mask", "nms_scan")}
+    # each path's launches, counted from 0 around its own runs
+    by_path = {key: {"detect": sum(r["launches"][key]
+                                   for r in main_res.values()),
+                     "eval": evals["launches"][key]}
+               for key in ("nms_mask", "nms_scan")}
+    by_path["render"] = {"train": train["render_launches"],
+                         "train_cli": cli["render_launches"]}
+    launches = {key: sum(v.values()) for key, v in by_path.items()}
     iou_launches = sum(r["iou_launches"] for r in main_res.values())
     nms_src = "ryolo_tpu_torch/ops/csrc/rotated_nms.cu"
     print(json.dumps({"kernels": [{
@@ -1325,12 +1762,14 @@ def main():
         "name": "nms_mask", "route": "cuda", "source": nms_src,
         "replaces": "ryolo_tpu/ops/pallas_iou.py:76 (inside "
                     "ryolo_tpu/ops/rotated_nms.py:127-182)",
-        "launches": launches["nms_mask"], **nms["mask"],
+        "launches": launches["nms_mask"],
+        "launches_by_path": by_path["nms_mask"], **nms["mask"],
         "library_ms": None}, {
         "name": "nms_scan", "route": "cuda", "source": nms_src,
         "replaces": "ryolo_tpu/ops/rotated_nms.py:152-212 (XLA while_loop; "
                     "no Pallas kernel)",
-        "launches": launches["nms_scan"], **nms["scan"],
+        "launches": launches["nms_scan"],
+        "launches_by_path": by_path["nms_scan"], **nms["scan"],
         "library_ms": None}, {
         "name": "warp", "route": "cuda",
         "source": "ryolo_tpu_torch/ops/csrc/warp.cu",
@@ -1345,7 +1784,8 @@ def main():
         "replaces": "ryolo_tpu/ops/pallas_warp.py:107 (B2 redesigned: with "
                     "ryolo_tpu/data/device_augment.py:298, :365 and :648 "
                     "around it)",
-        "launches": train["render_launches"],
+        "launches": launches["render"],
+        "launches_by_path": by_path["render"],
         "max_abs_err": render["max_abs_err"],
         "ms": render["ms"], "plain_ms": render["plain_ms"],
         "bound_ms": render["bound_ms"], "bound_by": render["bound_by"],

@@ -162,6 +162,9 @@ class BaseDataset:
         # the only host pixel work left
         self.cache_images = cache_images
         self._img_cache: dict = {}
+        # RGB uint8 samples instead of float32 / 255 (un-augmented eval
+        # only; the evaluator normalizes on the device; set by load_data)
+        self.image_uint8 = False
         # (h0, w0), (h, w) per index once build_tile_bank ran
         self._bank_sizes: dict = {}
 
@@ -304,8 +307,9 @@ class BaseDataset:
         return img9, labels9
 
     def get_sample(self, index: int, rng: np.random.Generator):
-        """One sample rendered on the host: ``(path, img_rgb_f32,
-        labels (N, 187|7))``."""
+        """One sample rendered on the host: ``(path, img_rgb, labels (N,
+        187|7))``, the image float32 in [0, 1] (uint8 with
+        ``image_uint8``)."""
         hyp = self.hyp
         if self.augment and rng.random() < hyp["mosaic"]:
             if rng.random() < 0.8:
@@ -344,7 +348,11 @@ class BaseDataset:
         if self.augment and rng.random() < hyp["flipud"]:
             img, targets = vertical_flip(img, targets)
         labels = self._finalize_labels(targets)
-        img = np.ascontiguousarray(img[:, :, ::-1], dtype=np.float32) / 255.0
+        if self.image_uint8:
+            img = np.ascontiguousarray(img[:, :, ::-1])
+        else:
+            img = np.ascontiguousarray(img[:, :, ::-1],
+                                       dtype=np.float32) / 255.0
         return self.img_files[index], img, labels
 
     # -- device-side augmentation specs ------------------------------------

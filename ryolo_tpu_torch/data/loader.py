@@ -12,8 +12,9 @@ With ``device_augment`` a batch carries render specs for
 :func:`ryolo_tpu_torch.data.device_augment.render_batch` instead of
 ``images``: B base slots plus E = ceil(0.4·B) mixup-partner slots.  Each
 sample's rng is seeded from ``(seed, epoch, index)``, so batches do not
-depend on the prefetch order.  The multi-host ``shard`` option of the JAX
-loader is not ported (it serves ``--dp``, a later slice).
+depend on the prefetch order.  ``image_uint8`` (un-augmented eval) gives
+uint8 ``images``.  The multi-host ``shard`` option of the JAX loader is
+not ported (it serves ``--dp``, ROADMAP §A15).
 """
 
 from __future__ import annotations
@@ -107,9 +108,11 @@ class DataLoader:
         return out
 
     def _collate(self, samples):
-        """Host-rendered samples -> ``images`` (B, S, S, 3) float32 RGB."""
+        """Host-rendered samples -> ``images`` (B, S, S, 3) RGB, float32
+        (uint8 with the dataset's ``image_uint8``)."""
         s = self.dataset.img_size
-        images = np.zeros((len(samples), s, s, 3), np.float32)
+        img_dtype = np.uint8 if self.dataset.image_uint8 else np.float32
+        images = np.zeros((len(samples), s, s, 3), img_dtype)
         tgt, csl, mask = self._new_targets(len(samples))
         paths = []
         for b, (path, img, labels) in enumerate(samples):
@@ -241,13 +244,15 @@ DATASETS = {
 def load_data(data_dir, class_names, dataset_type, hyp, csl, img_size=608,
               batch_size=4, augment=False, shuffle=True, max_targets=300,
               drop_last=False, seed=42, workers=4, device_augment=False,
-              cache_images=False, device_cache=False):
+              cache_images=False, image_uint8=False, device_cache=False):
     """Dataset + loader factory (``lib/load.py:9-21`` of the reference).
 
     ``device_augment``: batches are render specs (the host only decodes
     and does label math).  ``device_cache``: the caller uploads
     ``dataset.build_tile_bank()`` once and batches carry bank rows
     (``spec_tile_idx``).  ``cache_images`` keeps decoded sources in RAM.
+    ``image_uint8`` (un-augmented only): RGB uint8 image batches, a quarter
+    of the upload; the evaluator divides by 255 on the device.
     """
     if dataset_type not in DATASETS:
         raise NotImplementedError(
@@ -255,6 +260,10 @@ def load_data(data_dir, class_names, dataset_type, hyp, csl, img_size=608,
     dataset = DATASETS[dataset_type](
         data_dir, class_names, hyp, img_size=img_size, augment=augment,
         csl=csl, cache_images=cache_images)
+    if image_uint8:
+        if augment:
+            raise ValueError("image_uint8 is for the un-augmented eval path")
+        dataset.image_uint8 = True
     loader = DataLoader(dataset, batch_size, csl=csl, shuffle=shuffle,
                         max_targets=max_targets, drop_last=drop_last,
                         seed=seed, workers=workers,

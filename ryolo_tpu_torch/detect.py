@@ -26,19 +26,12 @@ from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference
 from ryolo_tpu_torch.nn.heads import decode_csl_defer
 from ryolo_tpu_torch.utils.checkpoint import load_pth
 from ryolo_tpu_torch.utils.config import load_yaml
+from ryolo_tpu_torch.utils.device import (check_ported, resolve_device,
+                                          set_float32_math)
 from ryolo_tpu_torch.utils.logger import logger
 from ryolo_tpu_torch.utils.plot import plot_boxes
 
 STAGES = ("forward", "decode", "post_process")
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device asked for; a CUDA device must exist (no CPU fallback)."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available "
-                           "(pass --device cpu to run on the CPU)")
-    return dev
 
 
 class _Stages:
@@ -85,8 +78,7 @@ class Detect:
         dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
         if device.type == "cuda" and dtype == torch.float32:
             # cuDNN convolutions default to TF32; the f32 path is f32
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+            set_float32_math(device)
             logger.info("TF32 off: cudnn.allow_tf32=%s matmul.allow_tf32=%s"
                         % (torch.backends.cudnn.allow_tf32,
                            torch.backends.cuda.matmul.allow_tf32))
@@ -113,12 +105,7 @@ class Detect:
     def detect(self):
         """Run the CLI; returns ``[(path, (n, 7) detections)]``."""
         args = self.args
-        if args.mode != "csl":
-            raise NotImplementedError(
-                f"--mode {args.mode}: KFIoU comes with ROADMAP §A2")
-        if args.ver != "yolov7":
-            raise NotImplementedError(
-                f"--ver {args.ver}: v4/v5 come with ROADMAP §A2")
+        check_ported(args.mode, args.ver)
         device = resolve_device(args.device)
         data = load_yaml(args.data)
         config = load_yaml(args.hyp)

@@ -1,1 +1,2 @@
-"""Post-processing: class-max, selection, deferred theta, rotated NMS."""
+"""Post-processing (class-max, selection, deferred theta, rotated NMS),
+the mAP metrics and the evaluator."""

@@ -1,1 +1,2 @@
-"""Config, logging, ``.pth`` interop and plotting for the port."""
+"""Config, logging, devices, checkpoints and ``.pth`` interop, plotting
+for the port."""

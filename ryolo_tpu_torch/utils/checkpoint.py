@@ -1,11 +1,17 @@
 """Reference ``.pth`` layout and the JAX-tree -> state_dict bridge.
 
 Port of ``ryolo_tpu/utils/checkpoint.py`` (``state_dict_layout`` :166,
-``torch_name_to_flax`` :186, ``export_state_dict`` :302, ``load_pth``
-:337).  The port's module attribute names ARE the reference ``.pth``
-names, so a reference checkpoint, or the JAX weights turned into a
-state_dict by :func:`state_dict_from_flax`, load with
-``model.load_state_dict(sd, strict=True)`` and no converter.
+``torch_name_to_flax`` :186, ``import_state_dict`` :260,
+``export_state_dict`` :302, ``save_pth`` :330, ``load_pth`` :337,
+``save_train_state`` :350, ``load_train_state`` :365).  The port's module
+attribute names ARE the reference ``.pth`` names, so a reference
+checkpoint, or the JAX weights turned into a state_dict by
+:func:`state_dict_from_flax`, load with ``model.load_state_dict(sd,
+strict=True)`` and no converter.
+
+The train state (``last.state``, for ``--resume``) has the port's own
+format: the JAX package's framing (8-byte little-endian length, JSON meta)
+followed by a ``torch.save`` payload instead of flax bytes.
 
 Only the YOLOv7 layout is here; v4/v5 come with their blocks
 (ROADMAP §A2).
@@ -14,6 +20,8 @@ Only the YOLOv7 layout is here; v4/v5 come with their blocks
 from __future__ import annotations
 
 import collections
+import io
+import json
 from typing import List, Mapping, Tuple
 
 import numpy as np
@@ -168,3 +176,76 @@ def state_dict_from_flax(variables: Mapping, ver: str):
 def load_pth(path: str):
     """A reference-format state_dict, on the CPU (tensors only)."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_pth(model: torch.nn.Module, path: str):
+    """Write ``model``'s weights as a reference-format ``.pth``: the
+    state_dict in :func:`state_dict_layout` order, CPU tensors."""
+    sd = model.state_dict()
+    torch.save(collections.OrderedDict(
+        (name, sd[name].detach().cpu())
+        for name, _ in state_dict_layout(model.ver)), path)
+
+
+def import_state_dict(model: torch.nn.Module, state_dict: Mapping,
+                      max_entries: int = -1) -> int:
+    """Copy the first ``max_entries`` entries of a reference-ordered
+    state_dict into ``model`` (-1: all), as ``--weights_path`` does with
+    552 (the backbone+neck fine-tune filter, ``train.py:112-117``).  Raises
+    on a name the model lacks or a shape mismatch; ``num_batches_tracked``
+    entries are skipped and not counted, as the JAX package has none.
+    Returns the number of tensors loaded."""
+    own = model.state_dict()
+    loaded = 0
+    with torch.no_grad():
+        for i, (name, tensor) in enumerate(state_dict.items()):
+            if 0 <= max_entries <= i:
+                break
+            if name.endswith("num_batches_tracked"):
+                continue
+            if name not in own:
+                raise KeyError(f"{name} not found in the model")
+            cur = own[name]
+            if tuple(cur.shape) != tuple(tensor.shape):
+                raise ValueError(f"shape mismatch for {name}: ckpt "
+                                 f"{tuple(tensor.shape)} vs model "
+                                 f"{tuple(cur.shape)}")
+            cur.copy_(tensor)
+            loaded += 1
+    return loaded
+
+
+def save_train_state(trainer, meta: dict, path: str):
+    """The whole training state of ``trainer``
+    (:class:`ryolo_tpu_torch.train.Trainer`): model state_dict, optimizer
+    state (momentum buffers), the accumulation count and the gradients it
+    has summed so far, after the JSON ``meta`` (epoch, best_fitness)."""
+    grads = {name: p.grad.detach().cpu()
+             for name, p in trainer.model.named_parameters()
+             if p.grad is not None}
+    blob = io.BytesIO()
+    torch.save({"model": trainer.model.state_dict(),
+                "optimizer": trainer.optimizer.state_dict(),
+                "accum_count": trainer.accum_count, "grads": grads}, blob)
+    header = json.dumps(meta).encode()
+    with open(path, "wb") as f:
+        f.write(len(header).to_bytes(8, "little"))
+        f.write(header)
+        f.write(blob.getvalue())
+
+
+def load_train_state(trainer, path: str) -> dict:
+    """Restore what :func:`save_train_state` wrote into ``trainer`` (built
+    as at a cold start); returns the meta dict."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        meta = json.loads(f.read(n).decode())
+        blob = f.read()
+    dev = next(trainer.model.parameters()).device
+    state = torch.load(io.BytesIO(blob), map_location=dev, weights_only=True)
+    trainer.model.load_state_dict(state["model"], strict=True)
+    trainer.optimizer.load_state_dict(state["optimizer"])
+    trainer.accum_count = state["accum_count"]
+    for name, p in trainer.model.named_parameters():
+        p.grad = state["grads"].get(name)
+    return meta

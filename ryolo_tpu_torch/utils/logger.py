@@ -1,8 +1,11 @@
-"""Console logger (copy of ``ryolo_tpu/utils/logger.py:28-48``)."""
+"""Console logger and the scalar writer (copy of
+``ryolo_tpu/utils/logger.py``: ``setup_logger`` :36, ``Logger`` :51)."""
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import sys
 import time
 
@@ -37,3 +40,36 @@ def setup_logger(name: str = "ryolo_tpu_torch") -> logging.Logger:
 
 
 logger = setup_logger()
+
+
+class Logger:
+    """Scalar summary writer: TensorBoard when ``torch.utils.tensorboard``
+    imports, else one JSON line per call in ``<log_dir>/scalars.jsonl``."""
+
+    def __init__(self, log_dir: str):
+        os.makedirs(log_dir, exist_ok=True)
+        self.log_dir = log_dir
+        self._writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._writer = SummaryWriter(log_dir)
+        except Exception:  # tensorboard is optional
+            self._jsonl = open(os.path.join(log_dir, "scalars.jsonl"), "a")
+
+    def list_of_scalars_summary(self, tag_value_dictionary, step: int):
+        if self._writer is not None:
+            for tag, value in tag_value_dictionary.items():
+                self._writer.add_scalar(tag, value, global_step=step)
+            self._writer.flush()
+        else:
+            rec = {"step": step}
+            rec.update({k: float(v) for k, v in tag_value_dictionary.items()})
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
+
+    def close(self):
+        if self._writer is not None:
+            self._writer.close()
+        else:
+            self._jsonl.close()

@@ -1,0 +1,259 @@
+"""The port's evaluator and ``test`` CLI against the JAX package's
+(``ryolo_tpu/eval/evaluator.py``, ``test.py``) on the CPU: uint8 eval
+batches byte for byte, and ``evaluate`` on the same deploy-fused
+YOLOv7-CSL (jittered weights, 96 px, batch 2 with a short last batch,
+conf 0.001, iou 0.65, with the CSL val loss).
+
+Bounds: the four metrics within 1e-6 with equal keep sets (the forwards
+differ between the frameworks by float32 rounding, tests/test_deploy.py:
+72-79, which moves a score by ~1e-6); each loss item within rtol 1e-4
+(tests/test_torch_losses.py measures the loss itself at rtol 2e-5)."""
+
+import os
+import subprocess
+import sys
+from argparse import Namespace
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_losses import HYP
+from tests.torch_parity import MODEL_CFG, NC, jax_v7, limit_threads, torch_v7
+
+REPO = Path(__file__).resolve().parents[1]
+IMG, BS, MAX_T = 96, 2, 32
+KW = dict(img_size=IMG, batch_size=BS, conf_thres=0.001, iou_thres=0.65,
+          max_targets=MAX_T, progress=False)
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    """Synthetic data (3 val images: the last batch is short), jittered
+    JAX weights, and a ``.pth`` of them written by the JAX ``save_pth``."""
+    from ryolo_tpu.utils.checkpoint import save_pth
+    from tests import make_synth_data
+
+    limit_threads()
+    root = tmp_path_factory.mktemp("synth")
+    make_synth_data.main(str(root), n_images=6, img_size=IMG, seed=3)
+    data = {"val": str(root / "val"), "names": ["greenbox", "redbox"],
+            "type": "custom"}
+    jmodel, variables = jax_v7(seed=2)
+    weights = root / "w.pth"
+    save_pth(variables, "yolov7", str(weights))
+    return root, data, jmodel, variables, weights
+
+
+def _capture(monkeypatch, module):
+    """Record the per-image detections each evaluator matches."""
+    seen = []
+    orig = module.get_batch_statistics
+
+    def spy(outputs, *a):
+        seen.extend(np.asarray(o) for o in outputs)
+        return orig(outputs, *a)
+
+    monkeypatch.setattr(module, "get_batch_statistics", spy)
+    return seen
+
+
+def _jax_eval(jmodel, variables, data):
+    import jax.numpy as jnp
+
+    from ryolo_tpu.eval.evaluator import evaluate
+    from ryolo_tpu.losses import csl_loss
+    from ryolo_tpu.nn import fuse_for_inference
+    from ryolo_tpu.nn.yolo import STRIDES, make_anchors
+
+    anchors = make_anchors(STRIDES, MODEL_CFG["anchors"])
+
+    def loss_fn(outputs, batch):
+        return csl_loss(outputs, jnp.asarray(batch["tgt"]),
+                        jnp.asarray(batch["tgt_csl"]),
+                        jnp.asarray(batch["tgt_mask"]), anchors, NC, HYP)
+
+    model, dep = fuse_for_inference(jmodel, variables)
+    return evaluate(model, dep, loss_fn, data, HYP, True, **KW)
+
+
+def _port_model_and_loss(variables):
+    from ryolo_tpu_torch.nn import STRIDES, fuse_for_inference, make_anchors
+    from ryolo_tpu_torch.train import csl_loss_fn
+
+    model = fuse_for_inference(torch_v7(variables), device="cpu")
+    loss_fn = csl_loss_fn(make_anchors(STRIDES, MODEL_CFG["anchors"]), NC,
+                          HYP, "cpu")
+    return model, loss_fn
+
+
+def _assert_same_keep_set(g, w):
+    """The same detections per image, to the forward's rounding: each row
+    of ``g`` pairs with its own row of ``w`` (same class and theta bin,
+    boxes within the bounds of tests/test_torch_detect.py).  Rows may
+    trade places only where their scores are within the rounding."""
+    assert g.shape == w.shape
+    box = np.abs(g[:, None, :4] - w[None, :, :4]) / (2e-2 + 1e-3 * np.abs(
+        w[None, :, :4]))
+    cost = np.where((g[:, None, 6] == w[None, :, 6])
+                    & (np.abs(g[:, None, 4] - w[None, :, 4]) <= 1e-6),
+                    box.max(-1), np.inf)
+    pair = cost.argmin(1)
+    assert (cost[np.arange(len(g)), pair] <= 1).all()
+    assert len(np.unique(pair)) == len(g)
+    np.testing.assert_allclose(g[:, 5], w[pair, 5], atol=1e-5)
+    moved = np.flatnonzero(pair != np.arange(len(g)))
+    np.testing.assert_allclose(g[moved, 5], w[moved, 5], atol=1e-5)
+
+
+def test_uint8_batches_byte_equal_to_jax(setup):
+    from ryolo_tpu.data.loader import load_data as jload
+    from ryolo_tpu_torch.data.loader import load_data
+
+    root, data = setup[:2]
+    kw = dict(img_size=IMG, batch_size=BS, augment=False, shuffle=False,
+              max_targets=MAX_T, image_uint8=True)
+    _, got = load_data(data["val"], data["names"], "custom", HYP, True, **kw)
+    _, want = jload(data["val"], data["names"], "custom", HYP, True, **kw)
+    got, want = list(got), list(want)
+    assert len(got) == len(want) == 2 and len(got[1]["images"]) == 1
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        assert g["images"].dtype == np.uint8
+        for k in g:
+            if k == "paths":
+                assert g[k] == w[k]
+            else:
+                assert g[k].dtype == w[k].dtype
+                np.testing.assert_array_equal(g[k], w[k])
+    with pytest.raises(ValueError, match="un-augmented"):
+        load_data(data["val"], data["names"], "custom", HYP, True,
+                  **dict(kw, augment=True))
+
+
+def test_evaluate_matches_jax(setup, monkeypatch):
+    import ryolo_tpu.eval.evaluator as jev
+    import ryolo_tpu_torch.eval.evaluator as pev
+
+    root, data, jmodel, variables, _ = setup
+    jdets = _capture(monkeypatch, jev)
+    pdets = _capture(monkeypatch, pev)
+    want = _jax_eval(jmodel, variables, data)
+    model, loss_fn = _port_model_and_loss(variables)
+    got = pev.evaluate(model, loss_fn, data, HYP, True, device="cpu", **KW)
+
+    assert len(pdets) == len(jdets) == 3
+    assert sum(len(d) for d in jdets) > 100
+    for g, w in zip(pdets, jdets):
+        _assert_same_keep_set(g, w)
+    print("metrics", got[:4], want[:4])
+    np.testing.assert_allclose(got[:4], want[:4], rtol=0, atol=1e-6)
+    assert want[2] > 0  # some TP at mAP@.5: the matcher did real work
+    assert got[4].keys() == want[4].keys() and len(got[4]) == 5
+    for k, v in want[4].items():
+        np.testing.assert_allclose(got[4][k], float(v), rtol=1e-4)
+
+
+def test_uint8_and_float_images_give_identical_results(setup):
+    """The device-side /255 of uint8 batches equals the host loader's
+    float32 division: evaluating the host-normalized batches gives the
+    same numbers to the last bit."""
+    from ryolo_tpu_torch.data.loader import load_data
+    from ryolo_tpu_torch.eval.evaluator import (_DIV255, _norm_images,
+                                                evaluate)
+
+    root, data, _, variables, _ = setup
+    x = np.arange(256, dtype=np.uint8).reshape(1, 4, 64, 1).repeat(3, -1)
+    np.testing.assert_array_equal(
+        _norm_images(torch.from_numpy(x), torch.from_numpy(_DIV255)).numpy(),
+        (x.astype(np.float32) / 255.0).transpose(0, 3, 1, 2))
+    model, loss_fn = _port_model_and_loss(variables)
+    ref = evaluate(model, loss_fn, data, HYP, True, device="cpu", **KW)
+    _, loader = load_data(data["val"], data["names"], "custom", HYP, True,
+                          img_size=IMG, batch_size=BS, augment=False,
+                          shuffle=False, max_targets=MAX_T)
+    batches = list(loader)
+    assert batches[0]["images"].dtype == np.float32
+    got = evaluate(model, loss_fn, data, HYP, True, device="cpu",
+                   batches=batches, **KW)
+    assert got[:4] == ref[:4]
+    assert got[4] == ref[4]
+
+
+def test_pad_batch_pads_host_and_device_arrays():
+    from ryolo_tpu.eval.evaluator import _pad_batch as jpad
+    from ryolo_tpu_torch.eval.evaluator import _pad_batch
+
+    rng = np.random.default_rng(0)
+    arrays = {"images": rng.integers(0, 255, (1, 4, 4, 3), np.uint8),
+              "tgt": rng.uniform(0, 1, (1, 3, 6)).astype(np.float32),
+              "tgt_mask": np.ones((1, 3), bool)}
+    want = jpad(arrays, 3)
+    got = _pad_batch(dict(arrays, tgt=torch.from_numpy(arrays["tgt"])), 3)
+    assert isinstance(got["tgt"], torch.Tensor)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), want[k])
+    assert _pad_batch(arrays, 1) is arrays
+
+
+def _test_args(weights, data_yaml, **kw):
+    a = dict(weight_path=str(weights), mode="csl", ver="yolov7",
+             conf_thres=0.001, iou_thres=0.65, batch_size=BS, img_size=IMG,
+             data=str(data_yaml), hyp=str(REPO / "configs/hyp.yaml"),
+             max_targets=MAX_T, dtype="f32", device="cpu")
+    a.update(kw)
+    return Namespace(**a)
+
+
+def test_test_cli_on_cpu(setup):
+    """``python -m ryolo_tpu_torch.test`` on the CPU with a ``.pth`` that
+    the JAX package wrote: exits 0 and logs the ``all`` row."""
+    root, _, _, _, weights = setup
+    cmd = [sys.executable, "-m", "ryolo_tpu_torch.test", "--device", "cpu",
+           "--ver", "yolov7", "--weight_path", str(weights),
+           "--data", str(root / "data.yaml"),
+           "--hyp", str(REPO / "configs/hyp.yaml"), "--img_size", str(IMG),
+           "--batch_size", str(BS), "--max_targets", str(MAX_T)]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    r = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "Loaded 564 tensors" in r.stderr
+    rows = [ln for ln in r.stderr.splitlines() if ln.split()[3:4] == ["all"]]
+    assert len(rows) == 1 and rows[0].split()[4] == "3", r.stderr[-2000:]
+
+
+def test_test_cli_bf16_runs(setup):
+    from ryolo_tpu_torch.test import Test
+
+    root, _, _, _, weights = setup
+    mp, mr, map50, map5095, items = Test(
+        _test_args(weights, root / "data.yaml", dtype="bf16")).run()
+    assert all(0.0 <= v <= 1.0 for v in (mp, mr, map50, map5095))
+    assert len(items) == 5 and all(np.isfinite(v) for v in items.values())
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(dtype="int8"), "A14"), (dict(mode="kfiou"), "A2"),
+    (dict(ver="yolov5"), "A2")])
+def test_unported_options_raise(setup, change, match):
+    from ryolo_tpu_torch.test import Test, build_parser
+
+    root, _, _, _, weights = setup
+    with pytest.raises(NotImplementedError, match=match):
+        Test(_test_args(weights, root / "data.yaml", **change)).run()
+    assert build_parser().parse_args([]).device == "cuda"
+
+
+def test_cuda_without_card_raises(setup, monkeypatch):
+    from ryolo_tpu_torch.eval.evaluator import evaluate
+    from ryolo_tpu_torch.test import Test
+
+    root, data, _, variables, weights = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Test(_test_args(weights, root / "data.yaml", device="cuda")).run()
+    model, loss_fn = _port_model_and_loss(variables)
+    with pytest.raises(NotImplementedError, match="A15"):
+        evaluate(model, loss_fn, data, HYP, True, mesh=object(), **KW)
