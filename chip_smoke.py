@@ -17,7 +17,8 @@ Phases, each reported on its own lines:
    rotated IoU, the NMS mask and scan at 8 x 5000 candidates (thresholds
    0.2 and 0.65, with far-reject probes), the canvas warp, and the tap
    renderer at 12 specs x 800 px in both tile layouts (bit for bit);
-4. detect path: YOLOv7-CSL, nc = 16, seeded random weights, deploy-fused,
+4. detect path: YOLOv7-CSL, nc = 16, seeded random weights (written with
+   the port's ``save_pth``), deploy-fused,
    f32, 800 px, batch 8, driven through ``ryolo_tpu_torch.detect.Detect``
    on a folder of synthetic images at the CLI default (conf 0.7, iou 0.2)
    and at eval load (conf 0.001, iou 0.65), and once more at eval load in
@@ -47,7 +48,17 @@ Phases, each reported on its own lines:
 10. the ``train`` CLI in-process on a 16-image train and an 8-image val
    split at 800 px, batch 8, with the tap renderer and the tile bank: one
    epoch, then ``--resume`` to a second; the epoch split into steps, eval
-   and saves, one ``render`` launch per step, checkpoints that load.
+   and saves, one ``render`` launch per step, checkpoints that load;
+11. YOLOv5-CSL (the CLIs' default ``--ver``) at the same full width, its
+   seeded random weights written with the port's ``save_pth``: detect as
+   in phase 4 (both loads in f32, eval load in bf16), card against CPU as
+   in phase 5, the ``test`` CLI as in phase 8 in f32, and 7 training steps
+   as in phase 6 with the tap renderer and the tile bank;
+12. YOLOv4-CSL likewise: detect at eval load in f32 and 5 training steps
+   with the tap renderer and the tile bank.
+
+Phases 11 and 12 run beside the YOLOv7 phases that share their data: their
+detect and eval after phase 9, their training after phase 10.
 
 Then one JSON line with every kernel's numbers and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -77,6 +88,7 @@ IMG, BATCH, N_IMAGES = 800, 8, 40
 H100_FP32_OPS = 67e12      # FP32 outside the tensor cores, dense
 H100_BYTES_PER_S = 3.35e12  # HBM3
 TRAIN_IMAGES, TRAIN_STEPS, NBS = 64, 7, 64  # NBS: nominal batch, train.py
+V4_TRAIN_STEPS = 5
 
 
 def check(ok, what):
@@ -815,11 +827,11 @@ def write_dota_split(root, names, rng, n=TRAIN_IMAGES):
             f.write("\n".join(rows) + "\n")
 
 
-def train_model(cfg, device):
+def train_model(cfg, device, ver="yolov7"):
     from ryolo_tpu_torch.nn import Yolo
     from ryolo_tpu_torch.train import weights_init_normal
 
-    model = Yolo(NC, cfg["model"], mode="csl", ver="yolov7")
+    model = Yolo(NC, cfg["model"], mode="csl", ver=ver)
     weights_init_normal(model, torch.Generator().manual_seed(SEED))
     return model.to(device)
 
@@ -837,10 +849,12 @@ TRAIN_RUNS = (("pixel specs", False, "taps"), ("tile bank", True, "taps"),
 SPANS = ("render", "upload", "kernel", "paste_hsv", "mix_flip", "step")
 
 
-def phase_train(split, names, cfg):
-    """Training steps in three runs: the tap renderer with pixel specs and
-    with the tile bank, then the canvas route (paste, HSV, the warp kernel
-    B2, mixup and flips) with the tile bank."""
+def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
+                steps=TRAIN_STEPS):
+    """``steps`` training steps of ``ver`` in each of ``runs``: by default
+    the tap renderer with pixel specs and with the tile bank, then the
+    canvas route (paste, HSV, the warp kernel B2, mixup and flips) with the
+    tile bank."""
     import ryolo_tpu_torch.data.device_augment as da
     import ryolo_tpu_torch.train.trainer as trainer_mod
     from ryolo_tpu_torch.data.loader import load_data
@@ -849,8 +863,9 @@ def phase_train(split, names, cfg):
 
     hyp, dev = cfg["hyp"], torch.device("cuda")
     lr0, epochs = 0.01, 80  # the train CLI's defaults
-    trainer = Trainer(train_model(cfg, dev), train_loss_fn(cfg, dev), "SGD",
-                      lr0)
+    torch.cuda.empty_cache()
+    trainer = Trainer(train_model(cfg, dev, ver), train_loss_fn(cfg, dev),
+                      "SGD", lr0)
     lf = one_cycle(1, hyp["lrf"], epochs)
 
     # CUDA events around the render, its stages and the step (wrapping the
@@ -882,7 +897,7 @@ def phase_train(split, names, cfg):
     results, launches = {}, {}
     counts = (cuda_render.LAUNCHES, "render"), (cuda_warp.LAUNCHES, "warp")
     try:
-        for mode, cached, method in TRAIN_RUNS:
+        for mode, cached, method in runs:
             run = f"{mode}, {method}"
             dataset, loader = load_data(
                 split, names, "DOTA", hyp, True, img_size=IMG,
@@ -893,18 +908,18 @@ def phase_train(split, names, cfg):
             if cached:
                 t = time.perf_counter()
                 bank = torch.from_numpy(dataset.build_tile_bank()).to(dev)
-                log("train", f"tile bank {tuple(bank.shape)} int32, "
+                log("train", f"{ver}: tile bank {tuple(bank.shape)} int32, "
                     f"{bank.numel() * 4 / 1e6:.1f} MB, built and uploaded "
                     f"in {time.perf_counter() - t:.3f} s")
             iters = len(loader)
-            check(iters >= TRAIN_STEPS, iters)
+            check(iters >= steps, iters)
             nw = max(int(epochs * iters * hyp["warmup_prop"]), 1000)
             torch.cuda.reset_peak_memory_stats()
             rows, it, epoch = [], iter(loader), 0
             # the run's launches only: every count set to 0 just before
             for table, key in counts:
                 table[key] = 0
-            for step in range(1, TRAIN_STEPS + 1):
+            for step in range(1, steps + 1):
                 t0 = time.perf_counter()
                 batch = next(it)
                 wait = time.perf_counter() - t0
@@ -946,7 +961,8 @@ def phase_train(split, names, cfg):
                 rows.append(row)
                 layout = ("bank rows" if "spec_tile_idx" in batch
                           else "pixel tiles")
-                log("train", f"{run} step {step} ({layout}, lr {lr:.3g}, "
+                log("train", f"{ver} {run} step {step} ({layout}, lr "
+                    f"{lr:.3g}, "
                     f"accumulate {acc}, host syncs {syncs}, launches "
                     f"{per_step}): " + ", ".join(
                         f"{k} {v:.4g}" for k, v in vals.items())
@@ -968,7 +984,7 @@ def phase_train(split, names, cfg):
                         f"[{min(v):.3f}-{max(v):.3f}]")
             keys = ("render", "upload", "kernel") + (
                 ("paste_hsv", "mix_flip") if method == "canvas" else ())
-            log("train", f"{run}, steps 2..{TRAIN_STEPS}, mean / median "
+            log("train", f"{ver} {run}, steps 2..{steps}, mean / median "
                 "[min-max] (ms; render = the whole render_batch span, "
                 "upload = the host arrays it sends up, kernel = the render "
                 "or warp launch; step = forward + loss + backward + "
@@ -976,16 +992,18 @@ def phase_train(split, names, cfg):
                 + ", ".join(spread(k) for k in keys + ("step", "wait",
                                                        "wall", "ips"))
                 + f"; peak {steady['mem']:.2f} GiB; launches "
-                f"{launches[run]} over {TRAIN_STEPS} steps")
+                f"{launches[run]} over {steps} steps")
             results[run] = steady
     finally:
         for m, k, fn in saved:
             setattr(m, k, fn)
-    taps = sum(v["render"] for k, v in launches.items() if k.endswith("taps"))
-    canvas = launches["tile bank, canvas"]["warp"]
-    check(taps == 2 * TRAIN_STEPS and canvas == TRAIN_STEPS,
-          f"launches {launches}")
-    return dict(render_launches=taps, warp_launches=canvas, results=results)
+    want = {f"{mode}, {method}": {"render": steps * (method == "taps"),
+                                  "warp": steps * (method == "canvas")}
+            for mode, _, method in runs}
+    check(launches == want, f"{ver} launches {launches}, expected {want}")
+    return dict(render_launches=sum(v["render"] for v in launches.values()),
+                warp_launches=sum(v["warp"] for v in launches.values()),
+                results=results)
 
 
 def phase_train_card_vs_cpu(split, names, cfg):
@@ -1054,6 +1072,14 @@ def phase_train_card_vs_cpu(split, names, cfg):
         "all parameters (bound 0.01)")
 
 
+# With init_weights alone the v4/v5 head logits stay within about +-0.7
+# (v7's reach +-4 through its RepConv and implicit heads), so no score
+# passes the detect CLI's conf 0.7; shifting the obj and class biases by +2
+# puts every score in 0.74-0.82 at 320 px, and the NMS runs at its full
+# width (K = 5000 a batch image) at both loads, as with v7's weights.
+SCORE_PRIOR = 2.0
+
+
 def init_weights(model, gen):
     """Seeded random weights; BN statistics made positive."""
     with torch.no_grad():
@@ -1075,11 +1101,22 @@ def init_weights(model, gen):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
 
 
-def build_model(cfg):
+def build_model(cfg, ver="yolov7"):
+    """The detect and eval model of ``ver``: :func:`init_weights`, and for
+    v4/v5 the score prior of :data:`SCORE_PRIOR`."""
     from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.nn.blocks import ConvBlock
 
-    model = Yolo(NC, cfg["model"], mode="csl", ver="yolov7")
+    model = Yolo(NC, cfg["model"], mode="csl", ver=ver)
     init_weights(model, torch.Generator().manual_seed(SEED))
+    if ver != "yolov7":
+        with torch.no_grad():
+            for mod in model.modules():
+                if isinstance(mod, ConvBlock) and len(mod.conv) == 1:
+                    # a head conv; per anchor [x, y, w, h, obj, classes,
+                    # theta bins]
+                    bias = mod.conv[0].bias.view(model.na, model.nf)
+                    bias[:, 4:5 + NC] += SCORE_PRIOR
     return model.eval()
 
 
@@ -1101,19 +1138,29 @@ def write_images(folder, rng):
         cv2.imwrite(os.path.join(folder, f"im{i:03d}.png"), img)
 
 
-def phase_main_path(tmp, model):
+DETECT_RUNS = (("cli_default", 0.7, 0.2, "f32"),
+               ("eval_load", 0.001, 0.65, "f32"),
+               ("eval_load_bf16", 0.001, 0.65, "bf16"))
+
+
+def phase_main_path(tmp, model, runs=DETECT_RUNS):
+    """The detect CLI on ``model`` (its weights written with the port's
+    ``save_pth`` to ``<tmp>/<ver>.pth``), one run per ``(label, conf,
+    iou, dtype)`` of ``runs``; returns ``(results, weights path)``."""
     import ryolo_tpu_torch.eval.postprocess as pp
     from ryolo_tpu_torch.ops import cuda_nms
+    from ryolo_tpu_torch.utils.checkpoint import save_pth
     from ryolo_tpu_torch.utils.config import load_yaml
 
     names = load_yaml(os.path.join(REPO, "configs", "DOTA.yaml"))["names"]
     check(len(names) == NC, names)
-    write_images(os.path.join(tmp, "test"), np.random.default_rng(SEED))
+    if not os.path.isdir(os.path.join(tmp, "test")):
+        write_images(os.path.join(tmp, "test"), np.random.default_rng(SEED))
     data = os.path.join(tmp, "data.yaml")
     with open(data, "w") as f:
         json.dump({"test": os.path.join(tmp, "test"), "names": names}, f)
-    weights = os.path.join(tmp, "w.pth")
-    torch.save(model.state_dict(), weights)
+    weights = os.path.join(tmp, f"{model.ver}.pth")
+    save_pth(model, weights)
 
     # time every NMS call and kernel launch with CUDA events, by batch, and
     # count the host syncs inside the NMS (wrapping the module functions;
@@ -1154,22 +1201,21 @@ def phase_main_path(tmp, model):
     cuda_nms.nms_mask = timed("mask", cuda_nms.nms_mask)
     cuda_nms.nms_scan = timed("scan", cuda_nms.nms_scan)
     try:
-        return detect_runs(tmp, data, weights, spans)
+        return detect_runs(tmp, data, weights, spans, model.ver,
+                           runs), weights
     finally:
         for m, name, fn in saved:
             setattr(m, name, fn)
 
 
-def detect_runs(tmp, data, weights, spans):
+def detect_runs(tmp, data, weights, spans, ver, runs):
     from ryolo_tpu_torch.detect import Detect
     from ryolo_tpu_torch.ops import cuda_iou, cuda_nms
 
     results = {}
-    for label, conf, iou, dtype in (("cli_default", 0.7, 0.2, "f32"),
-                                    ("eval_load", 0.001, 0.65, "f32"),
-                                    ("eval_load_bf16", 0.001, 0.65, "bf16")):
+    for label, conf, iou, dtype in runs:
         args = Namespace(
-            weight_path=weights, mode="csl", ver="yolov7", conf_thres=conf,
+            weight_path=weights, mode="csl", ver=ver, conf_thres=conf,
             nms_thres=iou, batch_size=BATCH, img_size=IMG, data=data,
             hyp=os.path.join(REPO, "configs", "hyp.yaml"), ext="png",
             dtype=dtype, packed_input=False, device="cuda")
@@ -1220,13 +1266,13 @@ def detect_runs(tmp, data, weights, spans):
         for key in ("nms", "mask", "scan"):
             stage[key] = float(np.mean([
                 sum(s.elapsed_time(e) for s, e in b[key]) for b in spans[1:]]))
-        log("main", f"{label} (conf {conf}, iou {iou}, {dtype}): {nb} batches "
-            f"of {BATCH} at {IMG} px; {ips:.2f} images/s in infer (batches "
-            f"2..{nb}), {N_IMAGES / det.total_s:.2f} images/s wall with "
-            "letterbox and drawing; ms per batch " + ", ".join(
+        log("main", f"{ver} {label} (conf {conf}, iou {iou}, {dtype}): {nb} "
+            f"batches of {BATCH} at {IMG} px; {ips:.2f} images/s in infer "
+            f"(batches 2..{nb}), {N_IMAGES / det.total_s:.2f} images/s wall "
+            "with letterbox and drawing; ms per batch " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stage.items()))
-        log("main", f"{label}: detections per image min {min(n_det)} max "
-            f"{max(n_det)}; launches {launches} over {nb} batches (one "
+        log("main", f"{ver} {label}: detections per image min {min(n_det)} "
+            f"max {max(n_det)}; launches {launches} over {nb} batches (one "
             f"nms_mask and one nms_scan per batch), pairwise rotated_iou "
             f"launches {iou_launches}; NMS host syncs per batch {syncs} "
             "(sync debug mode warn)")
@@ -1253,7 +1299,7 @@ def phase_card_vs_cpu(model):
         atol = 1e-4 * r.abs().max().item() + 1e-4
         check(torch.allclose(o, r, rtol=1e-3, atol=atol),
               (o - r).abs().max().item())
-    log("card_vs_cpu", "fused head maps within rtol 1e-3, atol "
+    log("card_vs_cpu", f"{model.ver}: fused head maps within rtol 1e-3, atol "
         "1e-4*max|r|+1e-4 of the CPU")
 
     dec = decode_csl_defer(h_cpu, cpu_model.anchors, STRIDES, NC)
@@ -1285,7 +1331,7 @@ def phase_card_vs_cpu(model):
                 & ((p[0] - iou).abs() < 1e-3))
         n_edge = int(edge.sum())
         check(n_edge > 0, "keep sets differ without a knife-edge pair")
-    log("card_vs_cpu", f"post-process at conf {conf}, iou {iou}: "
+    log("card_vs_cpu", f"{model.ver}: post-process at conf {conf}, iou {iou}: "
         f"{int(v_cpu.sum())} kept on the CPU, {int(v_gpu.sum())} on the card;"
         f" equal keep sets and detections: {equal} (theta max_abs_err "
         f"{theta_err:.1e}); knife-edge pairs {n_edge}")
@@ -1433,25 +1479,26 @@ def eval_spans(spans):
     ])
 
 
-def phase_eval(tmp, names, weights):
+def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16")):
     """The ``test`` CLI's ``Test(args).run()`` on a 32-image DOTA val split
-    at 800 px, batch 8, conf 0.001, iou 0.65: f32 (TF32 off), then bf16;
-    each once to warm up and once timed."""
+    at 800 px, batch 8, conf 0.001, iou 0.65, in each of ``dtypes`` (f32
+    with TF32 off, bf16); each once to warm up and once timed."""
     from ryolo_tpu_torch.ops import cuda_nms
     from ryolo_tpu_torch.test import Test
 
     split = os.path.join(tmp, "dota_val")
-    write_dota_split(split, names, np.random.default_rng(SEED + 8),
-                     EVAL_IMAGES)
+    if not os.path.isdir(split):
+        write_dota_split(split, names, np.random.default_rng(SEED + 8),
+                         EVAL_IMAGES)
     data = os.path.join(tmp, "eval.yaml")
     with open(data, "w") as f:
         json.dump({"type": "DOTA", "val": split, "names": names}, f)
     results, launches = {}, {"nms_mask": 0, "nms_scan": 0}
     n_batches = -(-EVAL_IMAGES // BATCH)
-    for dtype in ("f32", "bf16"):
+    for dtype in dtypes:
         for run in ("warm-up", "timed"):
             args = Namespace(
-                weight_path=weights, mode="csl", ver="yolov7",
+                weight_path=weights, mode="csl", ver=ver,
                 conf_thres=0.001, iou_thres=0.65, batch_size=BATCH,
                 img_size=IMG, data=data,
                 hyp=os.path.join(REPO, "configs", "hyp.yaml"),
@@ -1467,8 +1514,8 @@ def phase_eval(tmp, names, weights):
             for key in launches:
                 launches[key] += got[key]
             check(got == {"nms_mask": n_batches, "nms_scan": n_batches},
-                  f"eval {dtype} {run}: launches {got} over {n_batches} "
-                  "batches")
+                  f"eval {ver} {dtype} {run}: launches {got} over "
+                  f"{n_batches} batches")
             per_batch = {k: spans.ms(k) for k in EVAL_SPANS}
             check(all(len(per_batch[k]) == n_batches for k in
                       ("upload", "forward", "post", "mask", "scan", "loss",
@@ -1484,25 +1531,28 @@ def phase_eval(tmp, names, weights):
             fwd = [f - d for f, d in zip(per_batch["forward"],
                                          per_batch["decode"])]
             per_batch["forward"] = fwd  # the forward without the decode
-            log("eval", f"{dtype} {run}: {EVAL_IMAGES} images, {n_batches} "
-                f"batches of {BATCH} at {IMG} px; {ips:.2f} images/s from "
-                f"the first batch request to the AP table ({wall:.3f} s); "
+            log("eval", f"{ver} {dtype} {run}: {EVAL_IMAGES} images, "
+                f"{n_batches} batches of {BATCH} at {IMG} px; {ips:.2f} "
+                f"images/s from the first batch request to the AP table ({wall:.3f} s); "
                 f"launches {got}; host syncs per batch {main_syncs:.2f} on "
                 f"the issuing thread, {worker_syncs:.2f} in the matcher "
                 f"threads; P {mp:.4g} R {mr:.4g} mAP@.5 {map50:.4g} "
                 f"mAP@.5:.95 {map5095:.4g}; val loss " + ", ".join(
                     f"{k} {v:.4g}" for k, v in items.items()))
             if run == "timed":
-                log("eval", f"{dtype}: host syncs by the port's line that "
-                    f"made them, over {n_batches} batches: {spans.sites}")
+                log("eval", f"{ver} {dtype}: host syncs by the port's line "
+                    f"that made them, over {n_batches} batches: "
+                    f"{spans.sites}")
                 for b in range(n_batches):
-                    log("eval", f"{dtype} batch {b + 1} ms: " + ", ".join(
-                        f"{k} {per_batch[k][b]:.3f}" for k in EVAL_SPANS
-                        if b < len(per_batch[k])))
+                    log("eval", f"{ver} {dtype} batch {b + 1} ms: "
+                        + ", ".join(f"{k} {per_batch[k][b]:.3f}"
+                                    for k in EVAL_SPANS
+                                    if b < len(per_batch[k])))
                 med = {k: float(np.median(v[1:])) for k, v in
                        per_batch.items() if len(v) > 1}
                 med["ap"] = spans.ms("ap")[0]
-                log("eval", f"{dtype}: median ms of batches 2..{n_batches} "
+                log("eval", f"{ver} {dtype}: median ms of batches "
+                    f"2..{n_batches} "
                     "(wait = loader, host clock; upload, forward, decode, "
                     "post (= post-process, of it mask and scan), loss: CUDA "
                     "events; fetch and matcher: host clock in the matcher "
@@ -1728,24 +1778,41 @@ def main():
     names = load_yaml(os.path.join(REPO, "configs", "DOTA.yaml"))["names"]
     model = build_model(cfg)
     with tempfile.TemporaryDirectory() as tmp:
-        main_res = phase_main_path(tmp, model)
+        main_res, weights = phase_main_path(tmp, model)
         phase_card_vs_cpu(model)
-        evals = phase_eval(tmp, names, os.path.join(tmp, "w.pth"))
+        evals = phase_eval(tmp, names, weights)
         phase_eval_card_vs_cpu(tmp, names, model, cfg)
+        # phase 11: YOLOv5 (the CLIs' default --ver); phase 12: YOLOv4
+        model = build_model(cfg, "yolov5")
+        det_v5, weights = phase_main_path(tmp, model)
+        phase_card_vs_cpu(model)
+        eval_v5 = phase_eval(tmp, names, weights, "yolov5", ("f32",))
+        model = build_model(cfg, "yolov4")
+        det_v4, _ = phase_main_path(tmp, model, DETECT_RUNS[1:2])
         del model
         split = os.path.join(tmp, "dota_train")
         write_dota_split(split, names, np.random.default_rng(SEED + 2))
         train = phase_train(split, names, cfg)
         phase_train_card_vs_cpu(split, names, cfg)
         cli = phase_train_cli(tmp, names, cfg)
+        bank_taps = TRAIN_RUNS[1:2]
+        train_v5 = phase_train(split, names, cfg, "yolov5", bank_taps)
+        train_v4 = phase_train(split, names, cfg, "yolov4", bank_taps,
+                               steps=V4_TRAIN_STEPS)
 
     # each path's launches, counted from 0 around its own runs
-    by_path = {key: {"detect": sum(r["launches"][key]
-                                   for r in main_res.values()),
-                     "eval": evals["launches"][key]}
+    by_path = {key: {path: sum(r["launches"][key] for r in res.values())
+                     for path, res in (("detect", main_res),
+                                       ("detect_v5", det_v5),
+                                       ("detect_v4", det_v4))}
                for key in ("nms_mask", "nms_scan")}
+    for key in by_path:
+        by_path[key].update(eval=evals["launches"][key],
+                            eval_v5=eval_v5["launches"][key])
     by_path["render"] = {"train": train["render_launches"],
-                         "train_cli": cli["render_launches"]}
+                         "train_cli": cli["render_launches"],
+                         "train_v5": train_v5["render_launches"],
+                         "train_v4": train_v4["render_launches"]}
     launches = {key: sum(v.values()) for key, v in by_path.items()}
     iou_launches = sum(r["iou_launches"] for r in main_res.values())
     nms_src = "ryolo_tpu_torch/ops/csrc/rotated_nms.cu"

@@ -9,7 +9,7 @@ host matcher with ``g++`` on first use).
 
 Subpackages
 -----------
-- ``ryolo_tpu_torch.nn``    — YOLOv7 blocks, backbone, PAN neck, CSL head, deploy fusion
+- ``ryolo_tpu_torch.nn``    — YOLOv4/v5/v7 blocks, backbones, PAN necks, CSL head, deploy fusion
 - ``ryolo_tpu_torch.ops``   — rotated IoU, rotated NMS and the render (plain PyTorch + CUDA kernels), the host C++ matcher
 - ``ryolo_tpu_torch.eval``  — deferred-theta post-processing, the mAP metrics, the evaluator
 - ``ryolo_tpu_torch.data``  — datasets, render specs, the spec loader, device-side augmentation

@@ -105,7 +105,7 @@ class Detect:
     def detect(self):
         """Run the CLI; returns ``[(path, (n, 7) detections)]``."""
         args = self.args
-        check_ported(args.mode, args.ver)
+        check_ported(args.mode)
         device = resolve_device(args.device)
         data = load_yaml(args.data)
         config = load_yaml(args.hyp)

@@ -1,17 +1,23 @@
-"""YOLOv7 building blocks in PyTorch (NCHW activations, OIHW kernels).
+"""YOLOv4/v5/v7 building blocks in PyTorch (NCHW activations, OIHW kernels).
 
-Counterparts of ``ryolo_tpu/nn/blocks.py``: ``ConvBlock`` :288, ``ELAN1``
-:517, ``ELAN2`` :546, ``MaxConv`` :575, ``ImplicitA/M`` :596/:613,
-``RepConv`` :630, ``SPPCSPC`` :755, ``max_pool_same`` :55,
-``upsample2x`` :79.  Attribute names follow the reference ``.pth`` layout
-(``ryolo_tpu_torch/utils/checkpoint.py``), registered in its order.
+Counterparts of ``ryolo_tpu/nn/blocks.py``: ``mish`` :43, the activations
+:47, ``ConvBlock`` :288, ``Bottleneck`` :418, ``CSP`` :441, ``C5`` :471,
+``C3`` :492, ``ELAN1`` :517, ``ELAN2`` :546, ``MaxConv`` :575,
+``ImplicitA/M`` :596/:613, ``RepConv`` :630, ``SPP`` :708, ``SPPF`` :733,
+``SPPCSPC`` :755, ``max_pool_same`` :55, ``upsample2x`` :79.  Attribute
+names follow the reference ``.pth`` layout
+(``ryolo_tpu_torch/utils/checkpoint.py``), registered in its order, which
+is not always the order of the forward (``CSP`` and ``C3`` register their
+convs before the bottleneck list ``m``).
 
 ``deploy=True`` builds the fused inference form that
 :func:`ryolo_tpu_torch.nn.deploy.fuse_for_inference` fills: each
 BN-backed conv is one biased conv and each RepConv one biased 3x3 conv
 (``fused``), so the graph is ``conv(+bias) -> act`` only.  The JAX
-package's TPU layout tricks (S2D stem, cv1/cv2 merge, chain barriers,
-int8) are not part of the port.
+package's TPU layout tricks (S2D stem, the cv1/cv2 merge of
+``parallel_cv12`` :387, chain barriers, int8) are not part of the port:
+``cv1`` and ``cv2`` stay two convs, and the 9- and 13-pools are single
+``F.max_pool2d`` windows (the JAX 5-pool cascade gives the same values).
 """
 
 from __future__ import annotations
@@ -28,7 +34,14 @@ def _identity(x):
     return x
 
 
-ACTIVATIONS = {"swish": F.silu, "linear": _identity}
+def _leaky(x):
+    return F.leaky_relu(x, 0.1)
+
+
+# mish: x·tanh(softplus(x)); F.mish's softplus switches to x above 20,
+# where JAX's logaddexp(x, 0) rounds to x in float32 as well
+ACTIVATIONS = {"mish": F.mish, "leaky": _leaky, "swish": F.silu,
+               "linear": _identity}
 
 
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -98,6 +111,77 @@ class ConvBlock(nn.Module):
 
     def forward(self, x):
         return self.act(self.conv(x))
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 at width c2 (the JAX blocks' ``e=1.0``, the only width
+    ``CSP`` and ``C3`` build), with the residual iff ``shortcut`` and
+    c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool, act: str,
+                 deploy: bool = False):
+        super().__init__()
+        self.cv1 = ConvBlock(c1, c2, 1, 1, act, deploy=deploy)
+        self.cv2 = ConvBlock(c2, c2, 3, 1, act, deploy=deploy)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class CSP(nn.Module):
+    """YOLOv4 cross-stage-partial block, mish, residual bottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int, deploy: bool = False):
+        super().__init__()
+        c_ = c1 // 2
+        kw = dict(deploy=deploy)
+        self.cv1 = ConvBlock(c1, c_, 1, 1, "mish", **kw)
+        self.cv2 = ConvBlock(c1, c_, 1, 1, "mish", **kw)
+        self.cv3 = ConvBlock(c_, c_, 1, 1, "mish", **kw)
+        self.cv4 = ConvBlock(2 * c_, c2, 1, 1, "mish", **kw)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, True, "mish", **kw)
+                                 for _ in range(n)))
+
+    def forward(self, x):
+        y1 = self.cv3(self.m(self.cv1(x)))
+        return self.cv4(torch.cat([y1, self.cv2(x)], 1))
+
+
+class C5(nn.Module):
+    """Five leaky convs, 1-3-1-3-1 (the YOLOv4 neck)."""
+
+    def __init__(self, c1: int, c2: int, deploy: bool = False):
+        super().__init__()
+        c_ = c1 // 2
+        kw = dict(deploy=deploy)
+        self.cv1 = ConvBlock(c1, c_, 1, 1, "leaky", **kw)
+        self.cv2 = ConvBlock(c_, c1, 3, 1, "leaky", **kw)
+        self.cv3 = ConvBlock(c1, c_, 1, 1, "leaky", **kw)
+        self.cv4 = ConvBlock(c_, c1, 3, 1, "leaky", **kw)
+        self.cv5 = ConvBlock(c1, c2, 1, 1, "leaky", **kw)
+
+    def forward(self, x):
+        return self.cv5(self.cv4(self.cv3(self.cv2(self.cv1(x)))))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with three convs, swish (YOLOv5)."""
+
+    def __init__(self, c1: int, c2: int, n: int, shortcut: bool = True,
+                 deploy: bool = False):
+        super().__init__()
+        c_ = c1 // 2
+        kw = dict(deploy=deploy)
+        self.cv1 = ConvBlock(c1, c_, 1, 1, "swish", **kw)
+        self.cv2 = ConvBlock(c1, c_, 1, 1, "swish", **kw)
+        self.cv3 = ConvBlock(2 * c_, c2, 1, 1, "swish", **kw)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, "swish", **kw)
+                                 for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
 
 
 class ELAN1(nn.Module):
@@ -215,6 +299,43 @@ class RepConv(nn.Module):
         if self.rbr_identity is not None:
             out = out + self.rbr_identity(x)
         return F.silu(out)
+
+
+class SPP(nn.Module):
+    """YOLOv4 spatial pyramid pooling (13/9/5), leaky."""
+
+    def __init__(self, c1: int, c2: int, deploy: bool = False):
+        super().__init__()
+        c_ = c1 // 2
+        kw = dict(deploy=deploy)
+        self.cv1 = ConvBlock(c1, c_, 1, 1, "leaky", **kw)
+        self.cv2 = ConvBlock(c_, c1, 3, 1, "leaky", **kw)
+        self.cv3 = ConvBlock(c1, c_, 1, 1, "leaky", **kw)
+        self.cv4 = ConvBlock(4 * c_, c_, 1, 1, "leaky", **kw)
+        self.cv5 = ConvBlock(c_, c1, 3, 1, "leaky", **kw)
+        self.cv6 = ConvBlock(c1, c2, 1, 1, "leaky", **kw)
+
+    def forward(self, x):
+        x = self.cv3(self.cv2(self.cv1(x)))
+        y = torch.cat([max_pool_same(x, 13), max_pool_same(x, 9),
+                       max_pool_same(x, 5), x], 1)
+        return self.cv6(self.cv5(self.cv4(y)))
+
+
+class SPPF(nn.Module):
+    """YOLOv5 fast SPP: three chained 5 x 5 pools, swish."""
+
+    def __init__(self, c1: int, c2: int, deploy: bool = False):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = ConvBlock(c1, c_, 1, 1, "swish", deploy=deploy)
+        self.cv2 = ConvBlock(4 * c_, c2, 1, 1, "swish", deploy=deploy)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        y1 = max_pool_same(x, 5)
+        y2 = max_pool_same(y1, 5)
+        return self.cv2(torch.cat([x, y1, y2, max_pool_same(y2, 5)], 1))
 
 
 class SPPCSPC(nn.Module):

@@ -75,6 +75,8 @@ def _absorb_implicit(weight, bias, ia, im):
 
 
 # YOLOv7 head triples ImplicitA -> 1x1 conv -> ImplicitM
+# (v4/v5 have a ``neck.conv7`` too, a BN-backed conv: looked up for
+# yolov7 only)
 _V7_HEADS = {f"neck.conv{i + 4}": (f"neck.ia{i}", f"neck.im{i}")
              for i in (1, 2, 3)}
 
@@ -82,6 +84,7 @@ _V7_HEADS = {f"neck.conv{i + 4}": (f"neck.ia{i}", f"neck.im{i}")
 def fuse_state_dict(model: Yolo) -> dict:
     """The deploy-structure state_dict of ``model`` (train structure)."""
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    heads = _V7_HEADS if model.ver == "yolov7" else {}
     out = {}
     for name, mod in model.named_modules():
         p = name + "."
@@ -96,8 +99,8 @@ def fuse_state_dict(model: Yolo) -> dict:
                 w, b = _fold_conv_bn(w, bn, sd.get(p + "conv.0.bias"))
             else:  # biased head conv
                 b = sd[p + "conv.0.bias"]
-                if name in _V7_HEADS:
-                    ia, im = _V7_HEADS[name]
+                if name in heads:
+                    ia, im = heads[name]
                     w, b = _absorb_implicit(w, b, sd[ia + ".implicit"],
                                             sd[im + ".implicit"])
             out[p + "conv.0.weight"], out[p + "conv.0.bias"] = w, b

@@ -28,7 +28,7 @@ def make_anchors(strides: Sequence[int], anchors: Sequence[Sequence[float]]):
 
 
 class Yolo(nn.Module):
-    """Rotated-box YOLO, ``ver='yolov7'`` x ``mode='csl'`` in this slice.
+    """Rotated-box YOLO, ``ver`` in {yolov4, yolov5, yolov7}, ``mode='csl'``.
 
     ``forward(images_nchw, decode=...)``:
       * ``False``: the head maps ``(B, na*nf, gh, gw)`` per level;
@@ -48,9 +48,7 @@ class Yolo(nn.Module):
                 f"mode {mode!r}: only csl is ported so far; KFIoU comes "
                 "with ROADMAP §A2")
         if ver not in BACKBONES:
-            raise NotImplementedError(
-                f"{ver}: only yolov7 is ported so far; v4/v5 come with "
-                "ROADMAP §A2")
+            raise NotImplementedError(f"Yolo version : {ver} not found.")
         self.n_classes = n_classes
         self.model_config = model_config
         self.mode, self.ver, self.deploy = mode, ver, deploy

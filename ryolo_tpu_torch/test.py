@@ -35,7 +35,7 @@ class Test:
         """Returns ``evaluate``'s ``(mp, mr, map50, map50_95, loss
         items)``."""
         args = self.args
-        check_ported(args.mode, args.ver)
+        check_ported(args.mode)
         if args.dtype == "int8":
             raise NotImplementedError(
                 "--dtype int8: the int8 deploy path comes with ROADMAP §A14")

@@ -11,8 +11,9 @@ then the mAP of the deploy-fused model on the val split, and
 ``best.pth``, ``last.pth`` (reference format) and ``last.state`` (the
 port's own format, for ``--resume``) under ``weights/<model_name>/``.
 
-Not ported yet, and raising: KFIoU and YOLOv4/v5 (ROADMAP §A2), bf16
-training (§A16), ``--dp``/``--sp`` above 1 (§A15).
+Every ``--ver`` (yolov4, yolov5, yolov7) runs with the CSL head.  Not
+ported yet, and raising: KFIoU (ROADMAP §A2), bf16 training (§A16),
+``--dp``/``--sp`` above 1 (§A15).
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ class Train:
 
     def _check_options(self):
         args = self.args
-        check_ported(args.mode, args.ver)
+        check_ported(args.mode)
         if args.dtype != "f32":
             raise NotImplementedError(
                 f"--dtype {args.dtype}: bf16 training comes with ROADMAP "

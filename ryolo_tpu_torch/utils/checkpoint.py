@@ -12,9 +12,6 @@ strict=True)`` and no converter.
 The train state (``last.state``, for ``--resume``) has the port's own
 format: the JAX package's framing (8-byte little-endian length, JSON meta)
 followed by a ``torch.save`` payload instead of flax bytes.
-
-Only the YOLOv7 layout is here; v4/v5 come with their blocks
-(ROADMAP §A2).
 """
 
 from __future__ import annotations
@@ -32,8 +29,23 @@ import torch
 # 'I' = implicit prior (``ryolo_tpu/utils/checkpoint.py:33-136``).
 
 
+def _csp(n):
+    return [("cv1", "C"), ("cv2", "C"), ("cv3", "C"), ("cv4", "C")] + [
+        (f"m.{i}", [("cv1", "C"), ("cv2", "C")]) for i in range(n)]
+
+
+def _c3(n):
+    return [("cv1", "C"), ("cv2", "C"), ("cv3", "C")] + [
+        (f"m.{i}", [("cv1", "C"), ("cv2", "C")]) for i in range(n)]
+
+
+def _convs(n):
+    """``cv1`` .. ``cvN``: SPPF (2), C5 (5), SPP (6), SPPCSPC (7)."""
+    return [(f"cv{i}", "C") for i in range(1, n + 1)]
+
+
 def _elan():
-    return [(f"cv{i}", "C") for i in range(1, 8)]
+    return _convs(7)
 
 
 def _maxconv():
@@ -47,15 +59,40 @@ def _repconv():
 
 
 _BACKBONES = {
+    "yolov4": [
+        ("cbm0", "C"), ("cbm1", "C"), ("csp1", _csp(1)),
+        ("cbm2", "C"), ("csp2", _csp(2)), ("cbm3", "C"), ("csp3", _csp(8)),
+        ("cbm4", "C"), ("csp4", _csp(8)), ("cbm5", "C"), ("csp5", _csp(4)),
+        ("spp", _convs(6)),
+    ],
+    "yolov5": [
+        ("cbs0", "C"), ("cbs1", "C"), ("csp1", _c3(3)),
+        ("cbs2", "C"), ("csp2", _c3(6)), ("cbs3", "C"), ("csp3", _c3(9)),
+        ("cbs4", "C"), ("csp4", _c3(3)), ("spp", _convs(2)),
+    ],
     "yolov7": [
         ("cbs0", "C"), ("cbs1", "C"), ("cbs2", "C"), ("cbs3", "C"),
         ("elan1", _elan()), ("mc1", _maxconv()), ("elan2", _elan()),
         ("mc2", _maxconv()), ("elan3", _elan()), ("mc3", _maxconv()),
-        ("elan4", _elan()), ("spp", [(f"cv{i}", "C") for i in range(1, 8)]),
+        ("elan4", _elan()), ("spp", _convs(7)),
     ],
 }
 
 _NECKS = {
+    "yolov4": [
+        ("conv7", "C"), ("conv8", "C"), ("conv9", _convs(5)),
+        ("conv14", "C"), ("conv15", "C"), ("conv16", _convs(5)),
+        ("conv21", "C"), ("conv22", "Cb"), ("conv23", "C"),
+        ("conv24", _convs(5)), ("conv29", "C"), ("conv30", "Cb"),
+        ("conv31", "C"), ("conv32", _convs(5)), ("conv37", "C"),
+        ("conv38", "Cb"),
+    ],
+    "yolov5": [
+        ("conv7", "C"), ("csp1", _c3(3)), ("conv14", "C"), ("csp2", _c3(3)),
+        ("conv15", "Cb"), ("conv16", "C"), ("csp3", _c3(3)),
+        ("conv17", "Cb"), ("conv18", "C"), ("csp4", _c3(3)),
+        ("conv19", "Cb"),
+    ],
     "yolov7": [
         ("conv1", "C"), ("elan1", _elan()), ("conv2", "C"), ("elan2", _elan()),
         ("conv3", "C"), ("conv4", "C"),
@@ -66,13 +103,6 @@ _NECKS = {
         ("repVgg3", _repconv()), ("ia3", "I"), ("conv7", "Cb"), ("im3", "I"),
     ],
 }
-
-
-def _check_ver(ver: str) -> None:
-    if ver not in _BACKBONES:
-        raise NotImplementedError(
-            f"{ver}: only yolov7 is ported so far; v4/v5 come with "
-            "ROADMAP §A2")
 
 
 def _expand(prefix: str, spec, out: List[Tuple[str, str]]):
@@ -102,7 +132,6 @@ def _expand(prefix: str, spec, out: List[Tuple[str, str]]):
 
 def state_dict_layout(ver: str) -> List[Tuple[str, str]]:
     """Ordered reference state_dict entries ``(name, kind)`` for ``ver``."""
-    _check_ver(ver)
     out: List[Tuple[str, str]] = []
     for name, spec in _BACKBONES[ver]:
         _expand(f"backbone.{name}", spec, out)
@@ -120,8 +149,14 @@ def torch_name_to_flax(name: str):
     """Map a state_dict name to ``(collection, path, transform)`` of the
     JAX tree; ``collection`` None means no JAX counterpart
     (``num_batches_tracked``), ``transform`` is 'conv', 'implicit' or None.
+    The bottleneck lists' ``m.K`` are the JAX tree's ``m_K``.
     """
-    parts = name.split(".")
+    parts = []
+    for p in name.split("."):
+        if p.isdigit() and parts and parts[-1] == "m":
+            parts[-1] = f"m_{p}"
+        else:
+            parts.append(p)
     tail = parts[-1]
     if tail == "num_batches_tracked":
         return None, (), None

@@ -22,11 +22,8 @@ def set_float32_math(device: torch.device):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def check_ported(mode: str, ver: str):
-    """Raise on a model the port does not have yet."""
+def check_ported(mode: str):
+    """Raise on a head the port does not have yet (every ``--ver`` runs)."""
     if mode != "csl":
         raise NotImplementedError(
             f"--mode {mode}: KFIoU comes with ROADMAP §A2")
-    if ver != "yolov7":
-        raise NotImplementedError(
-            f"--ver {ver}: v4/v5 come with ROADMAP §A2")

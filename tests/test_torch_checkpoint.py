@@ -1,4 +1,5 @@
-"""Port checkpoint bridge: JAX tree -> reference-ordered state_dict.
+"""Port checkpoint bridge: JAX tree -> reference-ordered state_dict, for
+YOLOv7, v5 and v4.
 
 ``ryolo_tpu_torch.utils.checkpoint.state_dict_from_flax`` must equal the
 JAX package's ``export_state_dict`` tensor by tensor, and the port's model
@@ -9,21 +10,25 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import jax_v7, limit_threads
+from tests.torch_parity import jax_ver, limit_threads
+
+VERS = ["yolov7", "yolov5", "yolov4"]
 
 
-@pytest.fixture(scope="module")
-def jax_variables():
+@pytest.fixture(scope="module", params=VERS)
+def jax_variables(request):
+    """``(variables, ver)``."""
     limit_threads()
-    return jax_v7(seed=3)[1]
+    return jax_ver(request.param, seed=3)[1], request.param
 
 
 def test_state_dict_from_flax_equals_export(jax_variables):
     from ryolo_tpu.utils.checkpoint import export_state_dict
     from ryolo_tpu_torch.utils.checkpoint import state_dict_from_flax
 
-    want = export_state_dict(jax_variables, "yolov7")
-    got = state_dict_from_flax(jax_variables, "yolov7")
+    variables, ver = jax_variables
+    want = export_state_dict(variables, ver)
+    got = state_dict_from_flax(variables, ver)
     assert list(got.keys()) == list(want.keys())
     for name in want:
         assert got[name].dtype == want[name].dtype, name
@@ -31,11 +36,12 @@ def test_state_dict_from_flax_equals_export(jax_variables):
                                       err_msg=name)
 
 
-def test_layout_matches_jax_layout():
+@pytest.mark.parametrize("ver", VERS)
+def test_layout_matches_jax_layout(ver):
     from ryolo_tpu.utils.checkpoint import state_dict_layout as jax_layout
     from ryolo_tpu_torch.utils.checkpoint import state_dict_layout
 
-    assert state_dict_layout("yolov7") == jax_layout("yolov7")
+    assert state_dict_layout(ver) == jax_layout(ver)
 
 
 def test_load_state_dict_strict_in_reference_order(jax_variables):
@@ -44,12 +50,13 @@ def test_load_state_dict_strict_in_reference_order(jax_variables):
                                                   state_dict_layout)
     from tests.torch_parity import MODEL_CFG, NC
 
-    model = Yolo(NC, MODEL_CFG, mode="csl", ver="yolov7")
-    sd = state_dict_from_flax(jax_variables, "yolov7")
+    variables, ver = jax_variables
+    model = Yolo(NC, MODEL_CFG, mode="csl", ver=ver)
+    sd = state_dict_from_flax(variables, ver)
     model.load_state_dict(sd, strict=True)
     # the port's registration order is the reference .pth order
     assert list(model.state_dict().keys()) == \
-        [n for n, _ in state_dict_layout("yolov7")]
+        [n for n, _ in state_dict_layout(ver)]
     for name, t in model.state_dict().items():
         assert torch.equal(t, sd[name]), name
 
@@ -59,17 +66,29 @@ def test_load_pth_roundtrip(jax_variables, tmp_path):
     from ryolo_tpu_torch.utils.checkpoint import (load_pth,
                                                   state_dict_from_flax)
 
+    variables, ver = jax_variables
     path = tmp_path / "w.pth"
-    save_pth(jax_variables, "yolov7", str(path))
+    save_pth(variables, ver, str(path))
     got = load_pth(str(path))
-    want = state_dict_from_flax(jax_variables, "yolov7")
+    want = state_dict_from_flax(variables, ver)
     assert list(got.keys()) == list(want.keys())
     assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("ver", ["yolov4", "yolov5"])
-def test_unported_layouts_raise(ver):
-    from ryolo_tpu_torch.utils.checkpoint import state_dict_layout
+def test_bottleneck_names_map_to_the_jax_lists():
+    """``m.K`` (an ``nn.Sequential`` of bottlenecks) is the JAX tree's
+    ``m_K``, as the JAX package's own ``torch_name_to_flax`` maps it, for
+    every entry of every layout."""
+    from ryolo_tpu.utils.checkpoint import torch_name_to_flax as jax_map
+    from ryolo_tpu_torch.utils.checkpoint import (state_dict_layout,
+                                                  torch_name_to_flax)
 
-    with pytest.raises(NotImplementedError, match="A2"):
-        state_dict_layout(ver)
+    n_lists = 0
+    for ver in VERS:
+        for name, _ in state_dict_layout(ver):
+            assert torch_name_to_flax(name) == jax_map(name), name
+            n_lists += ".m." in name
+    assert torch_name_to_flax("backbone.csp3.m.11.cv2.conv.1.running_var") \
+        == ("batch_stats", ("backbone", "csp3", "m_11", "cv2", "bn", "var"),
+            None)
+    assert n_lists > 500

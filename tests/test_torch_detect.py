@@ -12,7 +12,7 @@ import cv2
 import numpy as np
 import pytest
 
-from tests.torch_parity import MODEL_CFG, jax_v7, limit_threads
+from tests.torch_parity import MODEL_CFG, jax_model, jax_v7, limit_threads
 
 REPO = Path(__file__).resolve().parents[1]
 CONF, IOU, IMG, BS = 0.3, 0.4, 128, 2
@@ -46,7 +46,7 @@ def _args(root, weights, **kw):
     return Namespace(**a)
 
 
-def _jax_detections(root, jmodel, variables):
+def _jax_detections(root, jmodel, variables, img=IMG, conf=CONF):
     """JAX detect.py's infer (:76-86) on the same letterboxed batches."""
     import jax
     import jax.numpy as jnp
@@ -61,9 +61,9 @@ def _jax_detections(root, jmodel, variables):
     def infer(v, images):
         images = images.astype(jnp.float32) / 255.0
         _, (dec, neck) = model.apply(v, images, train=False, decode="defer")
-        return post_process_defer(dec, neck, 3, 2, CONF, IOU)
+        return post_process_defer(dec, neck, 3, 2, conf, IOU)
 
-    ds = ImageDataset(str(root / "test"), img_size=IMG, image_uint8=True)
+    ds = ImageDataset(str(root / "test"), img_size=img, image_uint8=True)
     out = []
     for s in range(0, len(ds), BS):
         items = [ds[j] for j in range(s, min(s + BS, len(ds)))]
@@ -73,13 +73,7 @@ def _jax_detections(root, jmodel, variables):
     return out
 
 
-def test_detections_match_jax(setup, tmp_path, monkeypatch):
-    from ryolo_tpu_torch.detect import Detect
-
-    root, weights, jmodel, variables = setup
-    monkeypatch.chdir(tmp_path)
-    got = Detect(_args(root, weights)).detect()
-    want = _jax_detections(root, jmodel, variables)
+def _assert_same_detections(got, want):
     assert [p for p, _ in got] == [p for p, _ in want]
     assert sum(len(d) for _, d in want) > 0
     for (_, g), (_, w) in zip(got, want):
@@ -90,7 +84,37 @@ def test_detections_match_jax(setup, tmp_path, monkeypatch):
         np.testing.assert_allclose(g[:, 4], w[:, 4], atol=1e-6)
         np.testing.assert_allclose(g[:, :4], w[:, :4], rtol=1e-3, atol=2e-2)
         np.testing.assert_allclose(g[:, 5], w[:, 5], atol=1e-4)
+
+
+def test_detections_match_jax(setup, tmp_path, monkeypatch):
+    from ryolo_tpu_torch.detect import Detect
+
+    root, weights, jmodel, variables = setup
+    monkeypatch.chdir(tmp_path)
+    got = Detect(_args(root, weights)).detect()
+    _assert_same_detections(got, _jax_detections(root, jmodel, variables))
     assert len(list((tmp_path / "outputs" / "inference").glob("*.png"))) == 3
+
+
+@pytest.mark.parametrize("ver", ["yolov5", "yolov4"])
+def test_versions_match_jax(setup, tmp_path, monkeypatch, ver):
+    """``--ver yolov5`` (the default) and ``yolov4`` at 96 px: the CLI's
+    detections against JAX detect.py's infer, with a ``.pth`` written by
+    the JAX package."""
+    from ryolo_tpu.utils.checkpoint import save_pth
+    from ryolo_tpu_torch.detect import Detect, build_parser
+
+    assert build_parser().parse_args([]).ver == "yolov5"
+    root = setup[0]
+    jmodel, variables = jax_model(ver, seed=1)
+    weights = tmp_path / f"{ver}.pth"
+    save_pth(variables, ver, str(weights))
+    monkeypatch.chdir(tmp_path)
+    # these weights score lower than v7's: a lower threshold keeps rows
+    got = Detect(_args(root, weights, ver=ver, img_size=96,
+                       conf_thres=0.2)).detect()
+    _assert_same_detections(got, _jax_detections(root, jmodel, variables,
+                                                 img=96, conf=0.2))
 
 
 def test_letterbox_and_plot_helpers_match_jax(setup):
@@ -162,8 +186,7 @@ def test_bf16_detect(setup, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(dtype="int8"), "A14"), (dict(mode="kfiou"), "A2"),
-    (dict(ver="yolov5"), "A2")])
+    (dict(dtype="int8"), "A14"), (dict(mode="kfiou"), "A2")])
 def test_unported_options_raise(setup, tmp_path, monkeypatch, change, item):
     from ryolo_tpu_torch.detect import Detect
 

@@ -1,4 +1,5 @@
-"""Port model parity: YOLOv7-CSL forward, deploy fusion and CSL decode.
+"""Port model parity: YOLOv7, v5 and v4 with the CSL head, forward,
+deploy fusion and CSL decode.
 
 Same jittered weights and the same numpy images through the JAX model and
 the port (NHWC/HWIO there, NCHW/OIHW here; head maps compare after
@@ -13,15 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import (MODEL_CFG, NC, jax_v7, limit_threads,
-                                nhwc_to_nchw, torch_v7)
+from tests.torch_parity import (MODEL_CFG, NC, jax_ver, limit_threads,
+                                nhwc_to_nchw, torch_model)
+
+VERS = ["yolov7", "yolov5", "yolov4"]
 
 
-@pytest.fixture(scope="module")
-def models():
+@pytest.fixture(scope="module", params=VERS)
+def models(request):
     limit_threads()
-    jmodel, variables = jax_v7(seed=0)
-    return jmodel, variables, torch_v7(variables)
+    jmodel, variables = jax_ver(request.param, seed=0)
+    return jmodel, variables, torch_model(variables, request.param)
 
 
 def _images(img, seed=1):
@@ -89,13 +92,16 @@ def test_fused_weights_equal_jax_folds(models):
     """Every fused conv that the JAX deploy tree keeps unmerged (it also
     packs cv1/cv2 pairs and rewrites the stem, TPU layout tricks the port
     leaves out) equals the port's fold bit for bit."""
+    import re
+
     from ryolo_tpu.nn.deploy import fuse_variables
     from ryolo_tpu_torch.nn.deploy import fuse_state_dict
 
     jmodel, variables, tmodel = models
-    jfused = fuse_variables(variables, ver="yolov7")["params"]
+    jfused = fuse_variables(variables, ver=tmodel.ver)["params"]
     compared = 0
     for name, t in fuse_state_dict(tmodel).items():
+        name = re.sub(r"\.m\.(\d+)\.", r".m_\1.", name)
         parts = name.replace(".conv.0.", ".conv.").split(".")
         leaf = {"weight": "kernel", "bias": "bias"}[parts[-1]]
         node = jfused
@@ -108,7 +114,10 @@ def test_fused_weights_equal_jax_folds(models):
             want = want.transpose(3, 2, 0, 1)
         np.testing.assert_array_equal(t.numpy(), want, err_msg=name)
         compared += 1
-    assert compared > 100  # BN folds, RepConv merges, implicit heads
+    # BN folds (and for v7 the RepConv merges and implicit heads) outside
+    # the merged cv1/cv2 pairs and the stem
+    assert compared > {"yolov7": 100, "yolov5": 80, "yolov4": 100}[
+        tmodel.ver], compared
 
 
 def test_defer_forward_matches_decode(models):

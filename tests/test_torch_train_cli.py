@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import jax_v7, limit_threads, torch_v7
+from tests.torch_parity import (jax_model, jax_v7, limit_threads,
+                                torch_model, torch_v7)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -30,13 +31,15 @@ def synth(tmp_path_factory):
     return root
 
 
+def _weight_pair(a):
+    """``(a, b)``: ``b`` moved off the weight set ``a`` by numpy."""
+    return a, jax.tree_util.tree_map(lambda x: x * 0.5 + 0.25, a)
+
+
 @pytest.fixture(scope="module")
 def jvars():
-    """Two jittered weight sets of the JAX v7-CSL: ``(a, b)``, ``b`` moved
-    off ``a`` by numpy."""
-    _, a = jax_v7(seed=4)
-    b = jax.tree_util.tree_map(lambda x: x * 0.5 + 0.25, a)
-    return a, b
+    """Two jittered weight sets of the JAX v7-CSL."""
+    return _weight_pair(jax_v7(seed=4)[1])
 
 
 def _args(synth, **kw):
@@ -89,7 +92,19 @@ def test_port_pth_loads_in_jax_and_back(tmp_path, jvars):
             assert torch.equal(model.state_dict()[k], v), k
 
 
-def test_partial_load_matches_jax(tmp_path, jvars):
+# the entries past the first 552 that keep their init, by version: how
+# many, the first and the last (v5: 552 falls inside neck.conv18's BN, so
+# its conv and BN weight load and its BN bias and statistics do not; v4:
+# the load ends with neck.conv16)
+KEPT = {"yolov7": (10, "neck.repVgg3.rbr_dense.1.running_var",
+                   "neck.im3.implicit"),
+        "yolov5": (50, "neck.conv18.conv.1.bias", "neck.conv19.conv.0.bias"),
+        "yolov4": (81, "neck.conv21.conv.0.weight",
+                   "neck.conv38.conv.0.bias")}
+
+
+@pytest.mark.parametrize("ver", ["yolov7", "yolov5", "yolov4"])
+def test_partial_load_matches_jax(tmp_path, jvars, ver):
     """``--weights_path``: the first 552 ordered entries, as JAX
     ``import_state_dict(max_entries=552)`` loads them."""
     from ryolo_tpu.utils.checkpoint import import_state_dict as jimport
@@ -98,16 +113,17 @@ def test_partial_load_matches_jax(tmp_path, jvars):
     from ryolo_tpu_torch.utils.checkpoint import (import_state_dict, load_pth,
                                                   state_dict_from_flax)
 
-    init, pretrained = jvars
+    init, pretrained = (jvars if ver == "yolov7"
+                        else _weight_pair(jax_model(ver, seed=4)[1]))
     path = tmp_path / "pre.pth"
-    jsave(pretrained, "yolov7", str(path))
+    jsave(pretrained, ver, str(path))
     sd = load_pth(str(path))
 
     want_vars, want_n = jimport(sd, init, max_entries=552)
-    model = torch_v7(init)
+    model = torch_model(init, ver)
     got_n = import_state_dict(model, sd, max_entries=PRETRAINED_ENTRIES)
     assert PRETRAINED_ENTRIES == 552 and got_n == want_n
-    want = state_dict_from_flax(jax.device_get(want_vars), "yolov7")
+    want = state_dict_from_flax(jax.device_get(want_vars), ver)
     got = model.state_dict()
     kept = []
     for i, (k, w) in enumerate(want.items()):
@@ -116,10 +132,10 @@ def test_partial_load_matches_jax(tmp_path, jvars):
         assert torch.equal(got[k], w), k
         assert torch.equal(w, sd[k]) == (i < 552), k
         kept += [k] if i >= 552 else []
-    assert len(kept) == 10 and kept[-1] == "neck.im3.implicit", kept
+    assert (len(kept), kept[0], kept[-1]) == KEPT[ver], kept
 
     bad = dict(sd)
-    bad["backbone.cbs0.conv.0.weight"] = torch.zeros(1, 1, 1, 1)
+    bad[next(iter(sd))] = torch.zeros(1, 1, 1, 1)
     with pytest.raises(ValueError, match="shape mismatch"):
         import_state_dict(model, bad)
     with pytest.raises(KeyError, match="not found"):
@@ -182,6 +198,47 @@ def test_cli_two_epochs(synth, tmp_path, monkeypatch, device_augment):
     model = Yolo(2, MODEL_CFG)
     model.load_state_dict(load_pth(str(out / "last.pth")), strict=True)
     assert all(torch.isfinite(v).all() for v in model.state_dict().values())
+
+
+@pytest.mark.parametrize("ver", ["yolov5", "yolov4"])
+def test_cli_runs_every_version(synth, tmp_path, monkeypatch, ver):
+    """``--ver yolov5`` (the default) and ``yolov4``: 2 epochs at 64 px
+    with device augmentation; finite losses and metrics each epoch, and
+    checkpoints in the version's reference layout."""
+    import ryolo_tpu_torch.train.__main__ as cli
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.utils.checkpoint import load_pth, state_dict_layout
+    from tests.torch_parity import MODEL_CFG
+
+    assert cli.build_parser().parse_args([]).ver == "yolov5"
+    losses, metrics = [], []
+    step, evaluate = cli.Trainer.train_step_rendered, cli.evaluate
+
+    def spy_step(self, *a, **kw):
+        loss, items = step(self, *a, **kw)
+        losses.append(float(loss))
+        return loss, items
+
+    def spy_eval(*a, **kw):
+        res = evaluate(*a, **kw)
+        metrics.append(res)
+        return res
+
+    monkeypatch.setattr(cli.Trainer, "train_step_rendered", spy_step)
+    monkeypatch.setattr(cli, "evaluate", spy_eval)
+    out = _run(_args(synth, ver=ver, device_augment=True), tmp_path,
+               monkeypatch)
+    assert len(losses) == 4 and np.isfinite(losses).all(), losses
+    assert len(metrics) == 2
+    for m in metrics:
+        assert all(0.0 <= v <= 1.0 for v in m[:4])
+        assert all(np.isfinite(v) for v in m[4].values())
+    for f in ("best.pth", "last.pth"):
+        sd = load_pth(str(out / f))
+        assert list(sd) == [n for n, _ in state_dict_layout(ver)]
+        model = Yolo(2, MODEL_CFG, ver=ver)
+        model.load_state_dict(sd, strict=True)
+        assert all(torch.isfinite(v).all() for v in sd.values())
 
 
 class _Stop(Exception):
@@ -274,8 +331,7 @@ def test_train_state_keeps_pending_accumulation(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(mode="kfiou"), "A2"), (dict(ver="yolov5"), "A2"),
-    (dict(dtype="bf16"), "A16"), (dict(dp=2), "A15"), (dict(sp=2), "A15")])
+    (dict(mode="kfiou"), "A2"), (dict(dtype="bf16"), "A16"), (dict(dp=2), "A15"), (dict(sp=2), "A15")])
 def test_unported_options_raise(synth, tmp_path, monkeypatch, change, match):
     from ryolo_tpu_torch.train.__main__ import Train, build_parser
 

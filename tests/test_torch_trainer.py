@@ -32,7 +32,7 @@ import torch
 
 from tests.test_torch_losses import HYP, _targets
 from tests.torch_parity import (MODEL_CFG, NC, jax_v7, limit_threads,
-                                nhwc_to_nchw, torch_v7)
+                                nhwc_to_nchw, torch_model)
 
 
 def test_one_cycle_and_fitness_match_jax():
@@ -146,15 +146,21 @@ def test_learning_rate_is_set_per_step():
 
 
 def test_train_step_matches_jax():
+    limit_threads()
+    jmodel, variables = jax_v7(seed=3)
+    check_train_step(jmodel, variables, "yolov7")
+
+
+def check_train_step(jmodel, variables, ver):
+    """One SGD step of the JAX ``Trainer.train_step`` and of the port's,
+    from the same weights on the same batch, held to the module's bounds."""
     from ryolo_tpu.losses import csl_loss as jax_csl
     from ryolo_tpu.train.trainer import Trainer as JaxTrainer
     from ryolo_tpu_torch.nn import STRIDES, make_anchors
     from ryolo_tpu_torch.train import Trainer, csl_loss_fn
     from ryolo_tpu_torch.utils.checkpoint import state_dict_from_flax
 
-    limit_threads()
-    jmodel, variables = jax_v7(seed=3)
-    tmodel = torch_v7(variables)
+    tmodel = torch_model(variables, ver)
     anchors = make_anchors(STRIDES, MODEL_CFG["anchors"])
     img = np.random.default_rng(7).uniform(0, 1, (2, 128, 128, 3)).astype(
         np.float32)
@@ -173,7 +179,7 @@ def test_train_step_matches_jax():
         jnp.float32(lr), jnp.int32(1))
     want = state_dict_from_flax(
         {"params": jax.device_get(state.params),
-         "batch_stats": jax.device_get(state.batch_stats)}, "yolov7")
+         "batch_stats": jax.device_get(state.batch_stats)}, ver)
 
     before = {k: v.detach().clone() for k, v in tmodel.state_dict().items()}
     ttr = Trainer(tmodel, csl_loss_fn(anchors, NC, HYP, "cpu"), "SGD", lr)

@@ -1,9 +1,10 @@
 """Shared set-up for the parity tests of the PyTorch port (tests/test_torch_*.py).
 
-Builds the JAX reference YOLOv7-CSL with every parameter and BN statistic
-jittered from a numpy seed (as tests/test_deploy.py:25-50 does, so the
-deploy folds are not trivial), and the port's model carrying the same
-weights through ``state_dict_from_flax``.
+Builds the JAX reference model (YOLOv4, v5 or v7, CSL head) with every
+parameter and BN statistic jittered from a numpy seed (as
+tests/test_deploy.py:25-50 does, so the deploy folds are not trivial), and
+the port's model carrying the same weights through
+``state_dict_from_flax``.
 """
 
 import jax
@@ -24,15 +25,43 @@ def limit_threads():
     torch.set_num_threads(2)
 
 
-def jax_v7(seed: int = 0):
-    """``(model, variables)``: the JAX v7-CSL model, jittered numpy weights."""
+def jax_model(ver: str, seed: int = 0):
+    """``(model, variables)``: the JAX ``ver``-CSL model, jittered numpy
+    weights (:func:`random_variables`)."""
     from ryolo_tpu.nn import Yolo
 
-    model = Yolo(n_classes=NC, model_config=MODEL_CFG, mode="csl",
-                 ver="yolov7")
-    init = jax.jit(lambda k, x: model.init(k, x, train=False))
-    variables = jax.device_get(init(jax.random.PRNGKey(seed),
-                                    jnp.zeros((1, 64, 64, 3))))
+    model = Yolo(n_classes=NC, model_config=MODEL_CFG, mode="csl", ver=ver)
+    return model, random_variables(model, np.zeros((1, 64, 64, 3),
+                                                   np.float32), seed)
+
+
+def random_variables(module, x, seed: int):
+    """Variables of the flax ``module`` drawn by numpy, then jittered:
+    kernels ~ N(0, 1/fan_in) (flax's LeCun scale), biases 0, BN scale 1
+    and statistics (0, 1), implicit priors as the blocks draw them.  Only
+    the shapes come from flax (``jax.eval_shape``: a trace, no init run,
+    which takes 10-16 s for a whole model on the CPU)."""
+    shapes = jax.eval_shape(lambda k, x: module.init(k, x, train=False),
+                            jax.random.PRNGKey(0), jnp.asarray(x))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        leaf, shape = path[-1].key, s.shape
+        if leaf == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            return rng.normal(0, fan_in ** -0.5, shape).astype(np.float32)
+        if leaf == "implicit":
+            mean = 1.0 if path[-2].key.startswith("im") else 0.0
+            return rng.normal(mean, 0.02, shape).astype(np.float32)
+        fill = 1.0 if leaf in ("scale", "var") else 0.0
+        return np.full(shape, fill, np.float32)
+
+    return jitter_variables(jax.tree_util.tree_map_with_path(draw, shapes),
+                            seed)
+
+
+def jitter_variables(variables, seed: int):
+    """Every parameter jittered; BN means shifted, variances redrawn."""
     rng = np.random.default_rng(seed)
 
     def jitter(a):
@@ -49,18 +78,42 @@ def jax_v7(seed: int = 0):
     params = jax.tree_util.tree_map(jitter, variables["params"])
     stats = jax.tree_util.tree_map_with_path(jitter_stats,
                                              variables["batch_stats"])
-    return model, {"params": params, "batch_stats": stats}
+    return {"params": params, "batch_stats": stats}
+
+
+def jax_v7(seed: int = 0):
+    """``(model, variables)``: the JAX v7-CSL model, initialised by flax,
+    jittered numpy weights."""
+    from ryolo_tpu.nn import Yolo
+
+    model = Yolo(n_classes=NC, model_config=MODEL_CFG, mode="csl",
+                 ver="yolov7")
+    init = jax.jit(lambda k, x: model.init(k, x, train=False))
+    variables = jax.device_get(init(jax.random.PRNGKey(seed),
+                                    jnp.zeros((1, 64, 64, 3))))
+    return model, jitter_variables(variables, seed)
+
+
+def jax_ver(ver: str, seed: int = 0):
+    """``jax_v7`` for yolov7 (the weights its tests were measured on),
+    :func:`jax_model` for yolov4/v5."""
+    return jax_v7(seed) if ver == "yolov7" else jax_model(ver, seed)
+
+
+def torch_model(variables, ver: str):
+    """The port's train-structure ``ver``-CSL model with the JAX weights,
+    eval."""
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.utils.checkpoint import state_dict_from_flax
+
+    model = Yolo(NC, MODEL_CFG, mode="csl", ver=ver)
+    model.load_state_dict(state_dict_from_flax(variables, ver), strict=True)
+    return model.eval()
 
 
 def torch_v7(variables):
     """The port's train-structure v7-CSL model with the JAX weights, eval."""
-    from ryolo_tpu_torch.nn import Yolo
-    from ryolo_tpu_torch.utils.checkpoint import state_dict_from_flax
-
-    model = Yolo(NC, MODEL_CFG, mode="csl", ver="yolov7")
-    model.load_state_dict(state_dict_from_flax(variables, "yolov7"),
-                          strict=True)
-    return model.eval()
+    return torch_model(variables, "yolov7")
 
 
 def nhwc_to_nchw(x):
