@@ -55,10 +55,22 @@ Phases, each reported on its own lines:
    in phase 5, the ``test`` CLI as in phase 8 in f32, and 7 training steps
    as in phase 6 with the tap renderer and the tile bank;
 12. YOLOv4-CSL likewise: detect at eval load in f32 and 5 training steps
-   with the tap renderer and the tile bank.
+   with the tap renderer and the tile bank;
+13. YOLOv7 with the KFIoU head (18 rotated anchors, the deferred KFIoU
+   decode, the KF loss) at the same full width: detect as in phase 4 (both
+   loads in f32, eval load in bf16; 236,250 candidates an image at 800 px
+   into the same two NMS kernels), card against CPU as in phase 5, the
+   ``test`` CLI as in phase 8 in f32, 7 training steps as in phase 6 with
+   the tap renderer and the tile bank, and one card-against-CPU SGD step as
+   in phase 7;
+14. YOLOv5-KFIoU: detect at eval load in f32 and 5 training steps with the
+   tap renderer and the tile bank.
 
-Phases 11 and 12 run beside the YOLOv7 phases that share their data: their
-detect and eval after phase 9, their training after phase 10.
+Phases 11-14 run beside the YOLOv7-CSL phases that share their data: their
+detect and eval after phase 9, their training after phase 10.  The eval
+runs of v7-CSL, v5-CSL and v7-KFIoU also count, on their second batch,
+the pairs of the NMS mask that the far reject leaves, for ``nms_mask``'s
+bound at the path's own shape.
 
 Then one JSON line with every kernel's numbers and, last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -88,7 +100,7 @@ IMG, BATCH, N_IMAGES = 800, 8, 40
 H100_FP32_OPS = 67e12      # FP32 outside the tensor cores, dense
 H100_BYTES_PER_S = 3.35e12  # HBM3
 TRAIN_IMAGES, TRAIN_STEPS, NBS = 64, 7, 64  # NBS: nominal batch, train.py
-V4_TRAIN_STEPS = 5
+SHORT_TRAIN_STEPS = 5  # YOLOv4-CSL and YOLOv5-KFIoU
 
 
 def check(ok, what):
@@ -322,6 +334,25 @@ def mask_ops(n_pairs, n_near, n_rows_total):
             + n_rows_total * (OPS_PER_ROW_BOX + OPS_PER_COL_BOX))
 
 
+def mask_bound(boxes, valid):
+    """``nms_mask``'s bound on one batch of NMS input ``(boxes, valid)``
+    (score-sorted, class-offset, degrees): the valid pairs the mask
+    decides, those the far reject cannot rule out, the words it writes."""
+    from ryolo_tpu_torch.ops.rotated_nms import decided_rows
+
+    n_rows = decided_rows(valid)
+    rows_total = int(n_rows.sum())
+    n_pairs, n_near = pair_counts(boxes, valid, n_rows)
+    words = int(sum((torch.arange(n, device=boxes.device) // 64 + 1).sum()
+                    for n in n_rows.tolist()))
+    t_ops = mask_ops(n_pairs, n_near, rows_total) / H100_FP32_OPS
+    t_bytes = (rows_total * 20 + words * 8 + len(boxes) * 4) \
+        / H100_BYTES_PER_S
+    return dict(valid=valid.sum(1).tolist(), pairs=n_pairs, near=n_near,
+                words=words, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def scan_words(keep, n_rows, max_keep):
     """Mask words the scan reads: (R + 1) for each decided row of each chunk
     R it visits, and it visits chunks until ``max_keep`` rows are kept or
@@ -384,9 +415,7 @@ def phase_nms_kernels():
     boxes, valid = boxes.to(dev), valid.to(dev)
     n_rows = decided_rows(valid)
     rows_total = int(n_rows.sum())
-    n_pairs, n_near = pair_counts(boxes, valid, n_rows)
-    words_written = int(sum((torch.arange(n, device=dev) // 64 + 1).sum()
-                            for n in n_rows.tolist()))
+    mb = mask_bound(boxes, valid)
     rep = {}
     for thr in (0.2, 0.65):
         mask = cuda_nms.nms_mask(boxes, n_rows, thr)
@@ -400,20 +429,16 @@ def phase_nms_kernels():
         check(worst <= 1e-5, f"mask bits differ off the knife edge at thr "
               f"{thr}: plain IoU {worst} from it")
         ms = cuda_ms(lambda: cuda_nms.nms_mask(boxes, n_rows, thr), 20)
-        ops = mask_ops(n_pairs, n_near, rows_total)
-        nbytes = rows_total * 20 + words_written * 8 + BATCH * 4
-        t_ops, t_bytes = ops / H100_FP32_OPS, nbytes / H100_BYTES_PER_S
-        bound, by = max(t_ops, t_bytes) * 1e3, \
-            "operations" if t_ops >= t_bytes else "bytes"
-        ops_all = (n_pairs * OPS_PER_PAIR
+        bound, by = mb["bound_ms"], mb["bound_by"]
+        ops_all = (mb["pairs"] * OPS_PER_PAIR
                    + rows_total * (OPS_PER_ROW_BOX + OPS_PER_COL_BOX))
         log("kernels", f"nms_mask {BATCH}x{k} (valid {n_rows.tolist()}) at "
             f"thr {thr}: {int(got.sum())} bits set, {len(diff)} differ from "
             "the plain version (each within 1e-5 of thr); kernel "
             f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound:.5f} ms "
-            f"({by}: {n_pairs} valid pairs, {n_near} not ruled out by the "
-            f"far reject, {words_written} words written); bound with every "
-            f"valid pair clipped {ops_all / H100_FP32_OPS * 1e3:.5f} ms")
+            f"({by}: {mb['pairs']} valid pairs, {mb['near']} not ruled out "
+            f"by the far reject, {mb['words']} words written); bound with "
+            f"every valid pair clipped {ops_all / H100_FP32_OPS * 1e3:.5f} ms")
 
         keep = cuda_nms.nms_scan(mask, valid, n_rows, max_keep)
         torch.cuda.synchronize()
@@ -827,21 +852,25 @@ def write_dota_split(root, names, rng, n=TRAIN_IMAGES):
             f.write("\n".join(rows) + "\n")
 
 
-def train_model(cfg, device, ver="yolov7"):
+def tag(ver, mode):
+    """``yolov5`` for the CSL head, ``yolov5-kfiou`` for the KFIoU head."""
+    return ver if mode == "csl" else f"{ver}-{mode}"
+
+
+def train_model(cfg, device, ver="yolov7", mode="csl"):
     from ryolo_tpu_torch.nn import Yolo
     from ryolo_tpu_torch.train import weights_init_normal
 
-    model = Yolo(NC, cfg["model"], mode="csl", ver=ver)
+    model = Yolo(NC, cfg["model"], mode=mode, ver=ver)
     weights_init_normal(model, torch.Generator().manual_seed(SEED))
     return model.to(device)
 
 
-def train_loss_fn(cfg, device):
-    from ryolo_tpu_torch.nn import STRIDES, make_anchors
-    from ryolo_tpu_torch.train import csl_loss_fn
+def train_loss_fn(cfg, model, device):
+    """The loss of ``model``'s head, with its anchors on ``device``."""
+    from ryolo_tpu_torch.train import LOSS_FNS
 
-    return csl_loss_fn(make_anchors(STRIDES, cfg["model"]["anchors"]), NC,
-                       cfg["hyp"], device)
+    return LOSS_FNS[model.mode](model.anchors, NC, cfg["hyp"], device)
 
 
 TRAIN_RUNS = (("pixel specs", False, "taps"), ("tile bank", True, "taps"),
@@ -850,11 +879,11 @@ SPANS = ("render", "upload", "kernel", "paste_hsv", "mix_flip", "step")
 
 
 def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
-                steps=TRAIN_STEPS):
-    """``steps`` training steps of ``ver`` in each of ``runs``: by default
-    the tap renderer with pixel specs and with the tile bank, then the
-    canvas route (paste, HSV, the warp kernel B2, mixup and flips) with the
-    tile bank."""
+                steps=TRAIN_STEPS, mode="csl"):
+    """``steps`` training steps of ``ver`` with the ``mode`` head in each of
+    ``runs``: by default the tap renderer with pixel specs and with the
+    tile bank, then the canvas route (paste, HSV, the warp kernel B2, mixup
+    and flips) with the tile bank."""
     import ryolo_tpu_torch.data.device_augment as da
     import ryolo_tpu_torch.train.trainer as trainer_mod
     from ryolo_tpu_torch.data.loader import load_data
@@ -864,9 +893,10 @@ def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
     hyp, dev = cfg["hyp"], torch.device("cuda")
     lr0, epochs = 0.01, 80  # the train CLI's defaults
     torch.cuda.empty_cache()
-    trainer = Trainer(train_model(cfg, dev, ver), train_loss_fn(cfg, dev),
-                      "SGD", lr0)
+    model = train_model(cfg, dev, ver, mode)
+    trainer = Trainer(model, train_loss_fn(cfg, model, dev), "SGD", lr0)
     lf = one_cycle(1, hyp["lrf"], epochs)
+    name = tag(ver, mode)
 
     # CUDA events around the render, its stages and the step (wrapping the
     # module functions; the launch counts stay the wrappers')
@@ -897,10 +927,10 @@ def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
     results, launches = {}, {}
     counts = (cuda_render.LAUNCHES, "render"), (cuda_warp.LAUNCHES, "warp")
     try:
-        for mode, cached, method in runs:
-            run = f"{mode}, {method}"
+        for specs, cached, method in runs:
+            run = f"{specs}, {method}"
             dataset, loader = load_data(
-                split, names, "DOTA", hyp, True, img_size=IMG,
+                split, names, "DOTA", hyp, mode == "csl", img_size=IMG,
                 batch_size=BATCH, augment=True, shuffle=True,
                 drop_last=True, seed=SEED, workers=4, device_augment=True,
                 cache_images=True, device_cache=cached)
@@ -908,7 +938,7 @@ def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
             if cached:
                 t = time.perf_counter()
                 bank = torch.from_numpy(dataset.build_tile_bank()).to(dev)
-                log("train", f"{ver}: tile bank {tuple(bank.shape)} int32, "
+                log("train", f"{name}: tile bank {tuple(bank.shape)} int32, "
                     f"{bank.numel() * 4 / 1e6:.1f} MB, built and uploaded "
                     f"in {time.perf_counter() - t:.3f} s")
             iters = len(loader)
@@ -961,7 +991,7 @@ def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
                 rows.append(row)
                 layout = ("bank rows" if "spec_tile_idx" in batch
                           else "pixel tiles")
-                log("train", f"{ver} {run} step {step} ({layout}, lr "
+                log("train", f"{name} {run} step {step} ({layout}, lr "
                     f"{lr:.3g}, "
                     f"accumulate {acc}, host syncs {syncs}, launches "
                     f"{per_step}): " + ", ".join(
@@ -984,7 +1014,7 @@ def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
                         f"[{min(v):.3f}-{max(v):.3f}]")
             keys = ("render", "upload", "kernel") + (
                 ("paste_hsv", "mix_flip") if method == "canvas" else ())
-            log("train", f"{ver} {run}, steps 2..{steps}, mean / median "
+            log("train", f"{name} {run}, steps 2..{steps}, mean / median "
                 "[min-max] (ms; render = the whole render_batch span, "
                 "upload = the host arrays it sends up, kernel = the render "
                 "or warp launch; step = forward + loss + backward + "
@@ -997,22 +1027,26 @@ def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
     finally:
         for m, k, fn in saved:
             setattr(m, k, fn)
-    want = {f"{mode}, {method}": {"render": steps * (method == "taps"),
-                                  "warp": steps * (method == "canvas")}
-            for mode, _, method in runs}
-    check(launches == want, f"{ver} launches {launches}, expected {want}")
+    want = {f"{specs}, {method}": {"render": steps * (method == "taps"),
+                                   "warp": steps * (method == "canvas")}
+            for specs, _, method in runs}
+    check(launches == want, f"{name} launches {launches}, expected {want}")
     return dict(render_launches=sum(v["render"] for v in launches.values()),
                 warp_launches=sum(v["warp"] for v in launches.values()),
                 results=results)
 
 
-def phase_train_card_vs_cpu(split, names, cfg):
+def phase_train_card_vs_cpu(split, names, cfg, mode="csl"):
+    """The render and one YOLOv7 SGD step with the ``mode`` head, card
+    against CPU at 256 px, batch 2."""
     from ryolo_tpu_torch.data.device_augment import render_batch
     from ryolo_tpu_torch.data.loader import load_data
     from ryolo_tpu_torch.train import Trainer
 
     hyp, lr = cfg["hyp"], 0.01
-    _, loader = load_data(split, names, "DOTA", hyp, True, img_size=256,
+    name = tag("yolov7", mode)
+    _, loader = load_data(split, names, "DOTA", hyp, mode == "csl",
+                          img_size=256,
                           batch_size=2, augment=True, shuffle=False,
                           drop_last=True, seed=SEED + 4, workers=2,
                           device_augment=True)
@@ -1025,15 +1059,15 @@ def phase_train_card_vs_cpu(split, names, cfg):
     diff = (torch.round(got * 255) - torch.round(want * 255)).abs()
     n_diff, err = int((diff > 0).sum()), float(diff.max())
     check(err <= 1 and n_diff <= 1e-3 * diff.numel(), (n_diff, err))
-    log("card_vs_cpu", f"render (taps) at 256 px, batch 2 (+"
+    log("card_vs_cpu", f"{name}: render (taps) at 256 px, batch 2 (+"
         f"{len(batch['spec_minv']) - 2} partner slots): {n_diff} of "
         f"{diff.numel()} values differ, max {err:.0f}/255; bit-equal: "
         f"{torch.equal(got, want)}")
 
-    cpu = Trainer(train_model(cfg, "cpu"), train_loss_fn(cfg, "cpu"), "SGD",
-                  lr)
-    card = Trainer(copy.deepcopy(cpu.model).cuda(), train_loss_fn(cfg, "cuda"),
-                   "SGD", lr)
+    model = train_model(cfg, "cpu", mode=mode)
+    cpu = Trainer(model, train_loss_fn(cfg, model, "cpu"), "SGD", lr)
+    card = Trainer(copy.deepcopy(model).cuda(),
+                   train_loss_fn(cfg, model, "cuda"), "SGD", lr)
     before = {k: v.clone() for k, v in cpu.model.state_dict().items()}
     _, items_cpu = cpu.train_step_rendered(batch, None, lr, 1, 2)
     _, items_card = card.train_step_rendered(batch, None, lr, 1, 2)
@@ -1064,7 +1098,8 @@ def phase_train_card_vs_cpu(split, names, cfg):
     # order, and the BatchNorms amplify it)
     check(stat_err <= 1e-3, f"BN statistics off by {stat_err}")
     check(max(upd) <= 0.05 and total <= 0.01, (max(upd), total))
-    log("card_vs_cpu", f"one SGD step at 256 px, batch 2: loss items within "
+    log("card_vs_cpu", f"{name}: one SGD step at 256 px, batch 2: loss "
+        f"items {sorted(items_cpu)} within "
         f"{worst:.2e} (rtol 1e-3); BN running statistics within "
         f"{stat_err:.2e} of each tensor's largest entry (bound 1e-3); "
         f"parameter update error (L2 over the CPU update's L2) "
@@ -1076,8 +1111,15 @@ def phase_train_card_vs_cpu(split, names, cfg):
 # (v7's reach +-4 through its RepConv and implicit heads), so no score
 # passes the detect CLI's conf 0.7; shifting the obj and class biases by +2
 # puts every score in 0.74-0.82 at 320 px, and the NMS runs at its full
-# width (K = 5000 a batch image) at both loads, as with v7's weights.
+# width (K = 5000 a batch image) at both loads, as with v7-CSL's weights.
+# v7-KFIoU's scores, a product over 18 anchors' obj and class logits, stay
+# below 0.7 too (0.69 at most at 256 px on the CPU); with the prior 84% of
+# them pass it (v5-KFIoU: all).
 SCORE_PRIOR = 2.0
+# each head's obj and class channels within an anchor's features: CSL [x,
+# y, w, h, obj, classes, theta bins], KFIoU [x, y, w, h, theta, obj,
+# classes]
+SCORE_CHANNELS = {"csl": slice(4, 5 + NC), "kfiou": slice(5, 6 + NC)}
 
 
 def init_weights(model, gen):
@@ -1101,22 +1143,22 @@ def init_weights(model, gen):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
 
 
-def build_model(cfg, ver="yolov7"):
-    """The detect and eval model of ``ver``: :func:`init_weights`, and for
-    v4/v5 the score prior of :data:`SCORE_PRIOR`."""
+def build_model(cfg, ver="yolov7", mode="csl"):
+    """The detect and eval model of ``ver`` with the ``mode`` head:
+    :func:`init_weights`, and but for v7-CSL the score prior of
+    :data:`SCORE_PRIOR` on the obj and class channels."""
     from ryolo_tpu_torch.nn import Yolo
     from ryolo_tpu_torch.nn.blocks import ConvBlock
 
-    model = Yolo(NC, cfg["model"], mode="csl", ver=ver)
+    model = Yolo(NC, cfg["model"], mode=mode, ver=ver)
     init_weights(model, torch.Generator().manual_seed(SEED))
-    if ver != "yolov7":
+    if (ver, mode) != ("yolov7", "csl"):
         with torch.no_grad():
             for mod in model.modules():
                 if isinstance(mod, ConvBlock) and len(mod.conv) == 1:
-                    # a head conv; per anchor [x, y, w, h, obj, classes,
-                    # theta bins]
+                    # a head conv, anchor-major
                     bias = mod.conv[0].bias.view(model.na, model.nf)
-                    bias[:, 4:5 + NC] += SCORE_PRIOR
+                    bias[:, SCORE_CHANNELS[mode]] += SCORE_PRIOR
     return model.eval()
 
 
@@ -1159,7 +1201,7 @@ def phase_main_path(tmp, model, runs=DETECT_RUNS):
     data = os.path.join(tmp, "data.yaml")
     with open(data, "w") as f:
         json.dump({"test": os.path.join(tmp, "test"), "names": names}, f)
-    weights = os.path.join(tmp, f"{model.ver}.pth")
+    weights = os.path.join(tmp, f"{tag(model.ver, model.mode)}.pth")
     save_pth(model, weights)
 
     # time every NMS call and kernel launch with CUDA events, by batch, and
@@ -1201,21 +1243,22 @@ def phase_main_path(tmp, model, runs=DETECT_RUNS):
     cuda_nms.nms_mask = timed("mask", cuda_nms.nms_mask)
     cuda_nms.nms_scan = timed("scan", cuda_nms.nms_scan)
     try:
-        return detect_runs(tmp, data, weights, spans, model.ver,
+        return detect_runs(tmp, data, weights, spans, model.ver, model.mode,
                            runs), weights
     finally:
         for m, name, fn in saved:
             setattr(m, name, fn)
 
 
-def detect_runs(tmp, data, weights, spans, ver, runs):
+def detect_runs(tmp, data, weights, spans, ver, mode, runs):
     from ryolo_tpu_torch.detect import Detect
     from ryolo_tpu_torch.ops import cuda_iou, cuda_nms
 
     results = {}
+    name = tag(ver, mode)
     for label, conf, iou, dtype in runs:
         args = Namespace(
-            weight_path=weights, mode="csl", ver=ver, conf_thres=conf,
+            weight_path=weights, mode=mode, ver=ver, conf_thres=conf,
             nms_thres=iou, batch_size=BATCH, img_size=IMG, data=data,
             hyp=os.path.join(REPO, "configs", "hyp.yaml"), ext="png",
             dtype=dtype, packed_input=False, device="cuda")
@@ -1266,12 +1309,12 @@ def detect_runs(tmp, data, weights, spans, ver, runs):
         for key in ("nms", "mask", "scan"):
             stage[key] = float(np.mean([
                 sum(s.elapsed_time(e) for s, e in b[key]) for b in spans[1:]]))
-        log("main", f"{ver} {label} (conf {conf}, iou {iou}, {dtype}): {nb} "
+        log("main", f"{name} {label} (conf {conf}, iou {iou}, {dtype}): {nb} "
             f"batches of {BATCH} at {IMG} px; {ips:.2f} images/s in infer "
             f"(batches 2..{nb}), {N_IMAGES / det.total_s:.2f} images/s wall "
             "with letterbox and drawing; ms per batch " + ", ".join(
                 f"{k} {v:.3f}" for k, v in stage.items()))
-        log("main", f"{ver} {label}: detections per image min {min(n_det)} "
+        log("main", f"{name} {label}: detections per image min {min(n_det)} "
             f"max {max(n_det)}; launches {launches} over {nb} batches (one "
             f"nms_mask and one nms_scan per batch), pairwise rotated_iou "
             f"launches {iou_launches}; NMS host syncs per batch {syncs} "
@@ -1282,9 +1325,10 @@ def detect_runs(tmp, data, weights, spans, ver, runs):
 
 
 def phase_card_vs_cpu(model):
-    from ryolo_tpu_torch.eval.postprocess import MAX_WH, post_process_defer
+    from ryolo_tpu_torch.eval.postprocess import (MAX_WH, post_process_defer,
+                                                  post_process_kfiou_defer)
     from ryolo_tpu_torch.nn import STRIDES, fuse_for_inference
-    from ryolo_tpu_torch.nn.heads import decode_csl_defer
+    from ryolo_tpu_torch.nn.heads import decode_csl_defer, decode_kfiou_scores
     from ryolo_tpu_torch.ops.cuda_iou import pairwise_rotated_iou
     from ryolo_tpu_torch.ops.rotated_iou import pairwise_rotated_iou_plain
 
@@ -1299,24 +1343,38 @@ def phase_card_vs_cpu(model):
         atol = 1e-4 * r.abs().max().item() + 1e-4
         check(torch.allclose(o, r, rtol=1e-3, atol=atol),
               (o - r).abs().max().item())
-    log("card_vs_cpu", f"{model.ver}: fused head maps within rtol 1e-3, atol "
+    name = tag(model.ver, model.mode)
+    log("card_vs_cpu", f"{name}: fused head maps within rtol 1e-3, atol "
         "1e-4*max|r|+1e-4 of the CPU")
 
-    dec = decode_csl_defer(h_cpu, cpu_model.anchors, STRIDES, NC)
+    # the CPU's maps and scores (or CSL rows) into both post-processes
     conf, iou = 0.001, 0.65
-    d_cpu, v_cpu = post_process_defer(dec, h_cpu, 3, NC, conf, iou)
-    d_gpu, v_gpu = post_process_defer(dec.cuda(), [h.cuda() for h in h_cpu],
-                                      3, NC, conf, iou)
+    h_gpu = [h.cuda() for h in h_cpu]
+    if model.mode == "csl":
+        dec = decode_csl_defer(h_cpu, cpu_model.anchors, STRIDES, NC)
+        d_cpu, v_cpu = post_process_defer(dec, h_cpu, 3, NC, conf, iou)
+        d_gpu, v_gpu = post_process_defer(dec.cuda(), h_gpu, 3, NC, conf,
+                                          iou)
+        # theta: the same bin; the card divides by 180 as a multiplication
+        # by its reciprocal, one ulp off (tests/test_postprocess.py:208-212)
+        cols, close, rel = [0, 1, 2, 3, 5, 6], [4], 0.0
+    else:
+        scores = decode_kfiou_scores(h_cpu, cpu_model.na, NC)
+        args = (cpu_model.na, cpu_model.anchors, STRIDES, conf, iou)
+        d_cpu, v_cpu = post_process_kfiou_defer(scores, h_cpu, *args)
+        d_gpu, v_gpu = post_process_kfiou_defer(
+            tuple(s.cuda() for s in scores), h_gpu, *args)
+        # boxes: the deferred decode's sigmoid and float32 steps on each
+        # device, held within 1e-6 of 1 + |value| (ulps of 800 px)
+        cols, close, rel = [5, 6], [0, 1, 2, 3, 4], 1.0
     d_gpu, v_gpu = d_gpu.cpu(), v_gpu.cpu()
-    # theta: the same bin; the card divides by 180 as a multiplication by
-    # its reciprocal, one ulp off (tests/test_postprocess.py:208-212)
-    cols = [0, 1, 2, 3, 5, 6]
     equal = (torch.equal(v_cpu, v_gpu)
              and torch.equal(d_cpu[..., cols], d_gpu[..., cols]))
-    theta_err = (d_cpu[..., 4] - d_gpu[..., 4]).abs().max().item()
+    box_err = ((d_cpu[..., close] - d_gpu[..., close]).abs()
+               / (1.0 + rel * d_cpu[..., close].abs())).max().item()
     n_edge = 0
     if equal:
-        check(theta_err <= 1e-6, theta_err)
+        check(box_err <= 1e-6, box_err)
     else:
         # allowed only where the kernel's and the plain version's IoU of
         # a pair lie on opposite sides of the threshold within 1e-3
@@ -1331,10 +1389,11 @@ def phase_card_vs_cpu(model):
                 & ((p[0] - iou).abs() < 1e-3))
         n_edge = int(edge.sum())
         check(n_edge > 0, "keep sets differ without a knife-edge pair")
-    log("card_vs_cpu", f"{model.ver}: post-process at conf {conf}, iou {iou}: "
+    log("card_vs_cpu", f"{name}: post-process at conf {conf}, iou {iou}: "
         f"{int(v_cpu.sum())} kept on the CPU, {int(v_gpu.sum())} on the card;"
-        f" equal keep sets and detections: {equal} (theta max_abs_err "
-        f"{theta_err:.1e}); knife-edge pairs {n_edge}")
+        f" equal keep sets and detections: {equal} (columns {close} within "
+        f"{box_err:.1e}" + (" of 1 + |CPU value|" if rel else "")
+        + f"); knife-edge pairs {n_edge}")
 
 
 EVAL_IMAGES, CLI_TRAIN, CLI_VAL = 32, 16, 8
@@ -1446,7 +1505,8 @@ def patched(pairs):
 
 def eval_spans(spans):
     """The eval path's instrumentation: every stage of a batch, on the
-    modules that ``ryolo_tpu_torch.test`` drives."""
+    modules that ``ryolo_tpu_torch.test`` drives (either head's decode,
+    post-process and loss)."""
     import ryolo_tpu_torch.eval.evaluator as ev
     import ryolo_tpu_torch.nn.yolo as yolo_mod
     import ryolo_tpu_torch.test as test_mod
@@ -1466,10 +1526,16 @@ def eval_spans(spans):
                                               yolo_mod.Yolo.forward)),
         (yolo_mod, "decode_csl_defer", spans.cuda(
             "decode", yolo_mod.decode_csl_defer)),
+        (yolo_mod, "decode_kfiou_scores", spans.cuda(
+            "decode", yolo_mod.decode_kfiou_scores)),
         (ev, "post_process_defer", spans.cuda("post", ev.post_process_defer)),
+        (ev, "post_process_kfiou_defer", spans.cuda(
+            "post", ev.post_process_kfiou_defer)),
         (cuda_nms, "nms_mask", spans.cuda("mask", cuda_nms.nms_mask)),
         (cuda_nms, "nms_scan", spans.cuda("scan", cuda_nms.nms_scan)),
         (trainer_mod, "csl_loss", spans.cuda("loss", trainer_mod.csl_loss)),
+        (trainer_mod, "kfiou_loss", spans.cuda("loss",
+                                               trainer_mod.kfiou_loss)),
         (ev, "_fetch", spans.clock("fetch", ev._fetch)),
         (ev, "get_batch_statistics", spans.clock("matcher",
                                                  ev.get_batch_statistics)),
@@ -1479,10 +1545,14 @@ def eval_spans(spans):
     ])
 
 
-def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16")):
+def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16"),
+               mode="csl"):
     """The ``test`` CLI's ``Test(args).run()`` on a 32-image DOTA val split
     at 800 px, batch 8, conf 0.001, iou 0.65, in each of ``dtypes`` (f32
-    with TF32 off, bf16); each once to warm up and once timed."""
+    with TF32 off, bf16); each once to warm up and once timed.  The timed
+    run of the first dtype keeps its second batch's NMS input for
+    :func:`mask_bound`."""
+    import ryolo_tpu_torch.eval.postprocess as pp
     from ryolo_tpu_torch.ops import cuda_nms
     from ryolo_tpu_torch.test import Test
 
@@ -1495,10 +1565,18 @@ def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16")):
         json.dump({"type": "DOTA", "val": split, "names": names}, f)
     results, launches = {}, {"nms_mask": 0, "nms_scan": 0}
     n_batches = -(-EVAL_IMAGES // BATCH)
+    name = tag(ver, mode)
+    nms_inputs = []
+    nms = pp.nms_rotated_masked
+
+    def keep_input(boxes, scores, valid, *a, **kw):
+        nms_inputs.append((boxes.clone(), valid.clone()))
+        return nms(boxes, scores, valid, *a, **kw)
+
     for dtype in dtypes:
         for run in ("warm-up", "timed"):
             args = Namespace(
-                weight_path=weights, mode="csl", ver=ver,
+                weight_path=weights, mode=mode, ver=ver,
                 conf_thres=0.001, iou_thres=0.65, batch_size=BATCH,
                 img_size=IMG, data=data,
                 hyp=os.path.join(REPO, "configs", "hyp.yaml"),
@@ -1507,14 +1585,17 @@ def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16")):
             # this run's launches only: every count set to 0 just before
             for key in cuda_nms.LAUNCHES:
                 cuda_nms.LAUNCHES[key] = 0
-            with eval_spans(spans):
+            capture = dtype == dtypes[0] and run == "timed"
+            with eval_spans(spans), patched(
+                    [(pp, "nms_rotated_masked", keep_input)] if capture
+                    else []):
                 mp, mr, map50, map5095, items = Test(args).run()
             got = dict(cuda_nms.LAUNCHES)
             torch.cuda.synchronize()
             for key in launches:
                 launches[key] += got[key]
             check(got == {"nms_mask": n_batches, "nms_scan": n_batches},
-                  f"eval {ver} {dtype} {run}: launches {got} over "
+                  f"eval {name} {dtype} {run}: launches {got} over "
                   f"{n_batches} batches")
             per_batch = {k: spans.ms(k) for k in EVAL_SPANS}
             check(all(len(per_batch[k]) == n_batches for k in
@@ -1522,8 +1603,8 @@ def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16")):
                        "matcher")), {k: len(v) for k, v in per_batch.items()})
             metrics = (mp, mr, map50, map5095)
             check(all(0.0 <= v <= 1.0 for v in metrics), metrics)
-            check(len(items) == 5 and all(math.isfinite(v)
-                                          for v in items.values()), items)
+            check(len(items) == (5 if mode == "csl" else 4)
+                  and all(math.isfinite(v) for v in items.values()), items)
             wall = spans.last - spans.first
             ips = EVAL_IMAGES / wall
             main_syncs = sum(spans.syncs) / n_batches
@@ -1531,7 +1612,7 @@ def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16")):
             fwd = [f - d for f, d in zip(per_batch["forward"],
                                          per_batch["decode"])]
             per_batch["forward"] = fwd  # the forward without the decode
-            log("eval", f"{ver} {dtype} {run}: {EVAL_IMAGES} images, "
+            log("eval", f"{name} {dtype} {run}: {EVAL_IMAGES} images, "
                 f"{n_batches} batches of {BATCH} at {IMG} px; {ips:.2f} "
                 f"images/s from the first batch request to the AP table ({wall:.3f} s); "
                 f"launches {got}; host syncs per batch {main_syncs:.2f} on "
@@ -1540,18 +1621,18 @@ def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16")):
                 f"mAP@.5:.95 {map5095:.4g}; val loss " + ", ".join(
                     f"{k} {v:.4g}" for k, v in items.items()))
             if run == "timed":
-                log("eval", f"{ver} {dtype}: host syncs by the port's line "
+                log("eval", f"{name} {dtype}: host syncs by the port's line "
                     f"that made them, over {n_batches} batches: "
                     f"{spans.sites}")
                 for b in range(n_batches):
-                    log("eval", f"{ver} {dtype} batch {b + 1} ms: "
+                    log("eval", f"{name} {dtype} batch {b + 1} ms: "
                         + ", ".join(f"{k} {per_batch[k][b]:.3f}"
                                     for k in EVAL_SPANS
                                     if b < len(per_batch[k])))
                 med = {k: float(np.median(v[1:])) for k, v in
                        per_batch.items() if len(v) > 1}
                 med["ap"] = spans.ms("ap")[0]
-                log("eval", f"{ver} {dtype}: median ms of batches "
+                log("eval", f"{name} {dtype}: median ms of batches "
                     f"2..{n_batches} "
                     "(wait = loader, host clock; upload, forward, decode, "
                     "post (= post-process, of it mask and scan), loss: CUDA "
@@ -1562,6 +1643,19 @@ def phase_eval(tmp, names, weights, ver="yolov7", dtypes=("f32", "bf16")):
                                       syncs=main_syncs,
                                       worker_syncs=worker_syncs,
                                       metrics=metrics)
+                if capture:
+                    check(len(nms_inputs) == n_batches, len(nms_inputs))
+                    mask_ms = per_batch["mask"][1]
+                    bound = mask_bound(*nms_inputs[1])
+                    nms_inputs.clear()
+                    log("eval", f"{name} {dtype}: nms_mask on batch 2 of the "
+                        f"path: valid candidates per image {bound['valid']},"
+                        f" {bound['pairs']} valid pairs decided, "
+                        f"{bound['near']} not ruled out by the far reject; "
+                        f"bound {bound['bound_ms']:.5f} ms "
+                        f"({bound['bound_by']}), measured {mask_ms:.4f} ms "
+                        f"({100 * bound['bound_ms'] / mask_ms:.2f}% of it)")
+                    results["mask_bound"] = dict(bound, ms=mask_ms)
     return dict(launches=launches, results=results)
 
 
@@ -1603,7 +1697,8 @@ def phase_eval_card_vs_cpu(tmp, names, model, cfg):
             # max_nms 1000: the CPU's plain NMS mask grows with its square
             res = ev.evaluate(
                 fuse_for_inference(model, device=dev),
-                train_loss_fn(cfg, dev), data, cfg["hyp"], True, 256, 2,
+                train_loss_fn(cfg, model, dev), data, cfg["hyp"], True, 256,
+                2,
                 0.001, 0.65, max_nms=1000, max_det=300, progress=False,
                 device=dev)
         out[dev] = (res, seen)
@@ -1789,7 +1884,17 @@ def main():
         eval_v5 = phase_eval(tmp, names, weights, "yolov5", ("f32",))
         model = build_model(cfg, "yolov4")
         det_v4, _ = phase_main_path(tmp, model, DETECT_RUNS[1:2])
+        # phase 13: YOLOv7-KFIoU; phase 14: YOLOv5-KFIoU
+        model = build_model(cfg, "yolov7", "kfiou")
+        det_kf, weights = phase_main_path(tmp, model)
+        phase_card_vs_cpu(model)
+        eval_kf = phase_eval(tmp, names, weights, "yolov7", ("f32",), "kfiou")
+        model = build_model(cfg, "yolov5", "kfiou")
+        det_v5_kf, _ = phase_main_path(tmp, model, DETECT_RUNS[1:2])
         del model
+        bounds = {tag(v, m): e["results"]["mask_bound"] for v, m, e in (
+            ("yolov7", "csl", evals), ("yolov5", "csl", eval_v5),
+            ("yolov7", "kfiou", eval_kf))}
         split = os.path.join(tmp, "dota_train")
         write_dota_split(split, names, np.random.default_rng(SEED + 2))
         train = phase_train(split, names, cfg)
@@ -1798,23 +1903,35 @@ def main():
         bank_taps = TRAIN_RUNS[1:2]
         train_v5 = phase_train(split, names, cfg, "yolov5", bank_taps)
         train_v4 = phase_train(split, names, cfg, "yolov4", bank_taps,
-                               steps=V4_TRAIN_STEPS)
+                               steps=SHORT_TRAIN_STEPS)
+        train_kf = phase_train(split, names, cfg, "yolov7", bank_taps,
+                               mode="kfiou")
+        phase_train_card_vs_cpu(split, names, cfg, "kfiou")
+        train_v5_kf = phase_train(split, names, cfg, "yolov5", bank_taps,
+                                  steps=SHORT_TRAIN_STEPS, mode="kfiou")
 
     # each path's launches, counted from 0 around its own runs
     by_path = {key: {path: sum(r["launches"][key] for r in res.values())
                      for path, res in (("detect", main_res),
                                        ("detect_v5", det_v5),
-                                       ("detect_v4", det_v4))}
+                                       ("detect_v4", det_v4),
+                                       ("detect_kfiou", det_kf),
+                                       ("detect_v5_kfiou", det_v5_kf))}
                for key in ("nms_mask", "nms_scan")}
     for key in by_path:
         by_path[key].update(eval=evals["launches"][key],
-                            eval_v5=eval_v5["launches"][key])
+                            eval_v5=eval_v5["launches"][key],
+                            eval_kfiou=eval_kf["launches"][key])
     by_path["render"] = {"train": train["render_launches"],
                          "train_cli": cli["render_launches"],
                          "train_v5": train_v5["render_launches"],
-                         "train_v4": train_v4["render_launches"]}
+                         "train_v4": train_v4["render_launches"],
+                         "train_kfiou": train_kf["render_launches"],
+                         "train_v5_kfiou": train_v5_kf["render_launches"]}
     launches = {key: sum(v.values()) for key, v in by_path.items()}
-    iou_launches = sum(r["iou_launches"] for r in main_res.values())
+    iou_launches = sum(r["iou_launches"] for res in (main_res, det_v5, det_v4,
+                                                     det_kf, det_v5_kf)
+                       for r in res.values())
     nms_src = "ryolo_tpu_torch/ops/csrc/rotated_nms.cu"
     print(json.dumps({"kernels": [{
         "name": "rotated_iou", "route": "cuda",
@@ -1831,6 +1948,7 @@ def main():
                     "ryolo_tpu/ops/rotated_nms.py:127-182)",
         "launches": launches["nms_mask"],
         "launches_by_path": by_path["nms_mask"], **nms["mask"],
+        "path_bounds": bounds,
         "library_ms": None}, {
         "name": "nms_scan", "route": "cuda", "source": nms_src,
         "replaces": "ryolo_tpu/ops/rotated_nms.py:152-212 (XLA while_loop; "

@@ -4,8 +4,9 @@ Port of the JAX ``detect.py`` (:34-203) with the same arguments plus
 ``--device`` (default ``cuda``; the CPU only when asked, and no fallback
 when no card is found).  The ``.pth`` is deploy-fused
 (:func:`ryolo_tpu_torch.nn.deploy.fuse_for_inference`), each batch runs
-forward -> deferred CSL decode -> post-process with rotated NMS on the
-device, and a background thread letterboxes the next batches meanwhile.
+forward -> deferred decode (CSL: rows without theta; KFIoU: scores alone)
+-> post-process with rotated NMS on the device, and a background thread
+letterboxes the next batches meanwhile.
 Decode and post-process stay float32 under ``--dtype bf16``.
 """
 
@@ -21,13 +22,13 @@ import numpy as np
 import torch
 
 from ryolo_tpu_torch.data.datasets import ImageDataset
-from ryolo_tpu_torch.eval.postprocess import post_process_defer
+from ryolo_tpu_torch.eval.postprocess import (post_process_defer,
+                                              post_process_kfiou_defer)
 from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference
-from ryolo_tpu_torch.nn.heads import decode_csl_defer
+from ryolo_tpu_torch.nn.heads import decode_csl_defer, decode_kfiou_scores
 from ryolo_tpu_torch.utils.checkpoint import load_pth
 from ryolo_tpu_torch.utils.config import load_yaml
-from ryolo_tpu_torch.utils.device import (check_ported, resolve_device,
-                                          set_float32_math)
+from ryolo_tpu_torch.utils.device import resolve_device, set_float32_math
 from ryolo_tpu_torch.utils.logger import logger
 from ryolo_tpu_torch.utils.plot import plot_boxes
 
@@ -94,18 +95,23 @@ class Detect:
         x = (x.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
         heads = model(x)
         mark()
-        dec = decode_csl_defer(heads, model.anchors, STRIDES, nc)
-        mark()
-        dets, valid = post_process_defer(
-            dec, heads, model.na, nc, float(self.args.conf_thres),
-            float(self.args.nms_thres))
+        conf, iou = float(self.args.conf_thres), float(self.args.nms_thres)
+        if model.mode == "csl":
+            dec = decode_csl_defer(heads, model.anchors, STRIDES, nc)
+            mark()
+            dets, valid = post_process_defer(dec, heads, model.na, nc, conf,
+                                             iou)
+        else:
+            scores = decode_kfiou_scores(heads, model.na, nc)
+            mark()
+            dets, valid = post_process_kfiou_defer(
+                scores, heads, model.na, model.anchors, STRIDES, conf, iou)
         mark()
         return dets, valid
 
     def detect(self):
         """Run the CLI; returns ``[(path, (n, 7) detections)]``."""
         args = self.args
-        check_ported(args.mode)
         device = resolve_device(args.device)
         data = load_yaml(args.data)
         config = load_yaml(args.hyp)

@@ -1,22 +1,23 @@
 """The full evaluation loop (counterpart of ``ryolo_tpu/eval/evaluator.py``:
-``padded_targets_to_rows`` :57, ``_norm_images`` :78, the CSL branch of
-``_eval_step_fn`` :96-112, ``_pad_batch`` :149, ``evaluate`` :167).
+``padded_targets_to_rows`` :57, ``_norm_images`` :78, ``_eval_step_fn``
+:96-140, ``_pad_batch`` :149, ``evaluate`` :167).
 
 Per batch, on the model's device: the uint8 images go up through pinned
 memory and are divided by 255 there, the deploy-fused model runs its
-forward with the deferred CSL decode, :func:`post_process_defer` selects
-and suppresses (on a card one ``nms_mask`` and one ``nms_scan`` launch),
-and ``loss_fn`` gives the val-loss items from the fused head maps.  The
-detections come back through pinned host buffers without blocking the
-issuing thread; three matcher threads each wait for their batch's copy
-and match it image by image (the C++ matcher drops the GIL), with at most
-three batches in flight.  The loss items stay on the device and are read
+forward with the deferred decode of its head (CSL: rows without theta;
+KFIoU: scores alone), :func:`post_process_defer` or
+:func:`post_process_kfiou_defer` selects and suppresses (on a card one
+``nms_mask`` and one ``nms_scan`` launch), and ``loss_fn`` gives the
+val-loss items from the fused head maps.  The detections come back
+through pinned host buffers without blocking the issuing thread; three
+matcher threads each wait for their batch's copy and match it image by
+image (the C++ matcher drops the GIL), with at most three batches in
+flight.  The loss items stay on the device and are read
 once, after the loop.
 
 The JAX package's jit step cache (``_STEP_CACHE``, ``clear_step_cache``)
 has no counterpart: nothing is traced here, so nothing is kept between
-calls.  The KFIoU branch (:113-140) comes with KFIoU (ROADMAP §A2), and
-``mesh`` with data parallelism (§A15).
+calls.  ``mesh`` comes with data parallelism (ROADMAP §A15).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ from ryolo_tpu_torch.eval.metrics import (IOU_THRESHOLDS,
                                           calculate_eval_stats,
                                           get_batch_statistics)
 from ryolo_tpu_torch.eval.postprocess import (MAX_DET, MAX_NMS,
-                                              post_process_defer)
+                                              post_process_defer,
+                                              post_process_kfiou_defer)
+from ryolo_tpu_torch.nn.yolo import STRIDES
 from ryolo_tpu_torch.ops.render import to_device
 from ryolo_tpu_torch.utils.logger import logger
 
@@ -109,9 +112,14 @@ def eval_step(model, arrays: Dict[str, torch.Tensor],
     max_det), loss items)``, nothing read back."""
     dtype = next(model.parameters()).dtype
     outputs, (dec, neck) = model(arrays["images"].to(dtype), decode="defer")
-    dets, valid = post_process_defer(dec, neck, model.na, model.n_classes,
-                                     float(conf_thres), float(iou_thres),
-                                     max_nms=max_nms, max_det=max_det)
+    if model.mode == "csl":
+        dets, valid = post_process_defer(
+            dec, neck, model.na, model.n_classes, float(conf_thres),
+            float(iou_thres), max_nms=max_nms, max_det=max_det)
+    else:  # dec: the KFIoU (conf, cls_id)
+        dets, valid = post_process_kfiou_defer(
+            dec, neck, model.na, model.anchors, STRIDES, float(conf_thres),
+            float(iou_thres), max_nms=max_nms, max_det=max_det)
     items = loss_fn(outputs, arrays)[1] if loss_fn is not None else {}
     return dets, valid, items
 
@@ -156,9 +164,9 @@ def evaluate(
     batches=None,
     device=None,
 ) -> Tuple[float, float, float, float, Dict[str, float]]:
-    """Run the mAP protocol on ``data['val']`` with ``model`` (deploy-fused
-    CSL; its weights take the place of the JAX ``variables`` argument) on
-    ``device`` (default: the model's).  ``batches`` (a list of the loader's
+    """Run the mAP protocol on ``data['val']`` with ``model`` (deploy-fused,
+    either head; its weights take the place of the JAX ``variables``
+    argument) on ``device`` (default: the model's).  ``batches`` (a list of the loader's
     batch dicts, host arrays or tensors) skips the loader.  Returns ``(mp,
     mr, map50, map50_95, mean loss items)``."""
     if mesh is not None:

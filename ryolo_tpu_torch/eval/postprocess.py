@@ -2,12 +2,13 @@
 
 Counterpart of ``ryolo_tpu/eval/postprocess.py`` (``_select_nms_compact``
 :42, ``post_process_fixed`` :113, ``_class_max`` :136, ``deferred_theta``
-:158, ``post_process_defer`` :198, ``_pp_tail`` :248), with the same
-semantics: score = obj x max class conf, keep score > conf_thres,
-descending score with ties by candidate index, cap ``max_nms``, NMS on
-boxes offset by ``class * 4096`` with angles in degrees, cap ``max_det``;
-outputs ``(B, max_det, 7)`` rows ``[x, y, w, h, theta(rad), conf, cls]``
-and a ``(B, max_det)`` valid mask, kept rows first in score order.
+:158, ``post_process_defer`` :198, ``post_process_kfiou_defer`` :220,
+``_pp_tail`` :248), with the same semantics: score = obj x max class
+conf, keep score > conf_thres, descending score with ties by candidate
+index, cap ``max_nms``, NMS on boxes offset by ``class * 4096`` with
+angles in degrees, cap ``max_det``; outputs ``(B, max_det, 7)`` rows
+``[x, y, w, h, theta(rad), conf, cls]`` and a ``(B, max_det)`` valid
+mask, kept rows first in score order.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import math
 
 import torch
 
+from ryolo_tpu_torch.nn.heads import deferred_kfiou_box
 from ryolo_tpu_torch.ops.rotated_nms import nms_rotated_masked
 
 MAX_WH = 4096.0   # class-offset separation
@@ -67,12 +69,19 @@ def deferred_theta(neck_outs, idx: torch.Tensor, na: int, nc: int):
 
 
 def _select_nms_compact(payload, sel, k: int, iou_thres: float,
-                        max_det: int, theta_fn=None):
-    """Top-k selection, rotated NMS and compaction at width ``k``."""
+                        max_det: int, theta_fn=None, box_fn=None):
+    """Top-k selection, rotated NMS and compaction at width ``k``.
+    ``theta_fn(idx)`` resolves the selected candidates' theta (CSL);
+    ``box_fn(idx) -> (B, k, 5)`` all their box fields, the payload then
+    holding the class alone (KFIoU)."""
     # a stable ascending sort of -sel: descending score, ties by index
     idx = torch.sort(-sel, dim=1, stable=True).indices[:, :k]
     top_scores = sel.gather(1, idx)
-    bx, by, bw, bh, bt, tcls = (p.gather(1, idx) for p in payload)
+    if box_fn is not None:
+        tcls = payload[0].gather(1, idx)
+        bx, by, bw, bh, bt = box_fn(idx).unbind(-1)
+    else:
+        bx, by, bw, bh, bt, tcls = (p.gather(1, idx) for p in payload)
     if theta_fn is not None:
         bt = theta_fn(idx)
     nms_boxes = torch.stack([bx + tcls * MAX_WH, by + tcls * MAX_WH, bw, bh,
@@ -98,21 +107,25 @@ def _select_nms_compact(payload, sel, k: int, iou_thres: float,
 
 
 def _pp_tail(payload, sel, iou_thres: float, max_nms: int, max_det: int,
-             theta_fn=None):
+             theta_fn=None, box_fn=None):
     k = min(max_nms, sel.shape[1])
     if k > SMALL_K:
         # one host read, where the JAX package branches with lax.cond
         n_max = int((sel > 0.0).sum(1).max())
         if n_max <= SMALL_K:
             k = SMALL_K
-    return _select_nms_compact(payload, sel, k, iou_thres, max_det, theta_fn)
+    return _select_nms_compact(payload, sel, k, iou_thres, max_det, theta_fn,
+                               box_fn)
+
+
+def _select(conf: torch.Tensor, conf_thres: float) -> torch.Tensor:
+    thres = torch.tensor(conf_thres, dtype=torch.float32, device=conf.device)
+    return torch.where(conf > thres, conf, -1.0)
 
 
 def _payload_and_sel(predictions, conf_thres: float):
     conf, cls_id = _class_max(predictions)
-    thres = torch.tensor(conf_thres, dtype=torch.float32,
-                         device=predictions.device)
-    sel = torch.where(conf > thres, conf, -1.0)
+    sel = _select(conf, conf_thres)
     return [predictions[..., i] for i in range(5)] + [cls_id], sel
 
 
@@ -132,3 +145,21 @@ def post_process_defer(predictions: torch.Tensor, neck_outs, na: int,
     payload, sel = _payload_and_sel(predictions, conf_thres)
     return _pp_tail(payload, sel, iou_thres, max_nms, max_det,
                     lambda idx: deferred_theta(neck_outs, idx, na, nc))
+
+
+def post_process_kfiou_defer(scores, neck_outs, na: int, anchors, strides,
+                             conf_thres: float, iou_thres: float,
+                             max_nms: int = MAX_NMS, max_det: int = MAX_DET):
+    """Post-process the KFIoU head with its whole box decode deferred:
+    ``scores`` ``(conf, cls_id)`` from
+    :func:`ryolo_tpu_torch.nn.heads.decode_kfiou_scores`, ``neck_outs`` the
+    head maps, ``anchors`` the model's rotated anchors (``Yolo.anchors``).
+    x, y, w, h and theta come from
+    :func:`ryolo_tpu_torch.nn.heads.deferred_kfiou_box` for the selected
+    candidates only; the result equals :func:`post_process_fixed` on the
+    full :func:`ryolo_tpu_torch.nn.heads.decode_kfiou` rows."""
+    conf, cls_id = scores
+    return _pp_tail([cls_id.float()], _select(conf, conf_thres), iou_thres,
+                    max_nms, max_det,
+                    box_fn=lambda idx: deferred_kfiou_box(
+                        neck_outs, idx, na, anchors, strides))

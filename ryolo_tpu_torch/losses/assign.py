@@ -6,7 +6,8 @@ The reference's ``build_targets`` (``lib/loss.py:270-331``) builds index
 lists of dynamic size; here the candidates form a dense lattice
 ``(B, T, na, 5)`` = batch x padded targets x anchors x {centre, 4
 neighbours}, flattened to ``K = T·na·5``, with a validity mask (target
-padding, wh-ratio gate, neighbour gates with g = 0.5).
+padding, wh-ratio gate, for KFIoU the angle gate, neighbour gates with
+g = 0.5).
 
 Head maps are the port's NCHW ``(B, na·nf, gh, gw)`` with anchor-major
 channels, so a candidate's row is read at ``(anchor, :, gj, gi)`` directly
@@ -40,9 +41,13 @@ class Candidates(NamedTuple):
 
 def build_candidates(tgt: torch.Tensor, tgt_mask: torch.Tensor,
                      anchors_lvl: torch.Tensor, gh: int, gw: int,
-                     tgt_csl: Optional[torch.Tensor] = None) -> Candidates:
+                     tgt_csl: Optional[torch.Tensor] = None,
+                     angle_gate: bool = False) -> Candidates:
     """``tgt`` (B, T, 6) ``[cls, x, y, w, h, theta]`` normalized,
-    ``tgt_mask`` (B, T) bool, ``anchors_lvl`` (na, 2) grid units."""
+    ``tgt_mask`` (B, T) bool, ``anchors_lvl`` (na, 2) or, rotated, (na, 3)
+    ``[w, h, theta]`` grid units.  ``angle_gate`` (KFIoU) keeps an anchor
+    only within 30 degrees of the target, ``|cos(theta_t - theta_a)| >
+    0.866`` (``lib/loss.py:457-459``)."""
     B, T = tgt.shape[:2]
     na = anchors_lvl.shape[0]
     gxy = torch.stack([tgt[..., 1] * float(gw), tgt[..., 2] * float(gh)], -1)
@@ -50,10 +55,15 @@ def build_candidates(tgt: torch.Tensor, tgt_mask: torch.Tensor,
     theta = tgt[..., 5]
 
     # wh-ratio anchor gate (lib/loss.py:297-298), padding rows sanitized
-    r = gwh[:, :, None, :] / torch.clamp_min(anchors_lvl[None, None], 1e-9)
+    r = gwh[:, :, None, :] / torch.clamp_min(anchors_lvl[None, None, :, :2],
+                                             1e-9)
     r = torch.where(tgt_mask[:, :, None, None], r, 1.0)
     ratio = torch.maximum(r, 1.0 / torch.clamp_min(r, 1e-9)).amax(-1)
     ok = tgt_mask[:, :, None] & (ratio < 4.0)                 # (B, T, na)
+    if angle_gate:
+        d = torch.abs(torch.cos(theta[:, :, None]
+                                - anchors_lvl[None, None, :, 2]))
+        ok = ok & (d > 0.866)
 
     # neighbour-cell gates (lib/loss.py:302-310)
     g = 0.5

@@ -1,9 +1,10 @@
 """Shared loss primitives: BCE with logits, focal modulation, masked means,
 axis-aligned CIoU (counterpart of ``ryolo_tpu/losses/common.py``:
 ``bce_with_logits`` :16, ``focal_modulation`` :26, ``bce_loss`` :37,
-``bbox_ciou`` :55, ``masked_mean`` :145).  Every reduction over a padded
-candidate set is a masked mean, so fixed shapes give the reference's
-dynamic-shape ``.mean()``.  ``kf_loss`` comes with the KFIoU head.
+``bbox_ciou`` :55, ``_sigma_inverse_quadform`` :89, ``kf_loss`` :100,
+``masked_mean`` :145).  Every reduction over a padded candidate set is a
+masked mean, so fixed shapes give the reference's dynamic-shape
+``.mean()``.
 """
 
 from __future__ import annotations
@@ -72,3 +73,56 @@ def bbox_ciou(pred_boxes, target_boxes):
     alpha = v.detach() / (S + v.detach() + 1e-15)
     ciou = iou - (u + alpha * v)
     return torch.clamp(ciou, -1.0, 1.0)
+
+
+def _sigma_inverse_quadform(diff, wh, r):
+    """``diff^T Sigma^-1 diff`` for ``Sigma = R diag(w/2, h/2)^2 R^T``, in
+    closed form: ``diff`` rotated into the box frame, where ``Sigma^-1`` is
+    diagonal."""
+    cos_r, sin_r = torch.cos(r), torch.sin(r)
+    dx = diff[..., 0] * cos_r + diff[..., 1] * sin_r
+    dy = -diff[..., 0] * sin_r + diff[..., 1] * cos_r
+    a = (0.5 * wh[..., 0]) ** 2
+    b = (0.5 * wh[..., 1]) ** 2
+    return dx ** 2 / a + dy ** 2 / b
+
+
+def kf_loss(pred, target, fun: str = "exp", alpha: float = 3.0, mask=None):
+    """Kalman-filter IoU loss of ``(..., 5)`` ``(x, y, w, h, theta)`` boxes
+    (``lib/loss.py:100-150`` of the reference, the Gaussians of
+    ``lib/general.py:107-133`` in closed form).  Returns ``(loss, kfiou)``:
+    the loss's mean over the elements ``mask`` selects (all without one)
+    and the elementwise KFIoU.  The terms keep the reference's order: with
+    sizes clipped to ``[1e-4, 1e4]`` the size ratios reach 1e24 in
+    float32."""
+    wh_p = torch.clamp(pred[..., 2:4], 1e-4, 1e4)
+    wh_t = torch.clamp(target[..., 2:4], 1e-4, 1e4)
+    r_p, r_t = pred[..., 4], target[..., 4]
+
+    diff = pred[..., 0:2] - target[..., 0:2]
+    xy_loss = torch.log(_sigma_inverse_quadform(diff, wh_t, r_t) + 1.0)
+
+    wp2, hp2 = wh_p[..., 0] ** 2, wh_p[..., 1] ** 2
+    wt2, ht2 = wh_t[..., 0] ** 2, wh_t[..., 1] ** 2
+    cos2dr = torch.cos(r_p - r_t) ** 2
+    sin2dr = torch.sin(r_p - r_t) ** 2
+
+    A = torch.sqrt(1 + (wp2 * hp2) / (wt2 * ht2)
+                   + (wp2 / wt2 + hp2 / ht2) * cos2dr
+                   + (wp2 / ht2 + hp2 / wt2) * sin2dr)
+    B = torch.sqrt(1 + (wt2 * ht2) / (wp2 * hp2)
+                   + (wt2 / wp2 + ht2 / hp2) * cos2dr
+                   + (wt2 / hp2 + ht2 / wp2) * sin2dr)
+    kfiou = (4.0 - alpha) / (A + B - alpha)
+
+    if fun == "ln":
+        k = -torch.log(kfiou + 1e-6)
+    elif fun == "exp":
+        k = torch.exp(1.0 - kfiou) - 1.0
+    else:
+        k = 1.0 - kfiou
+
+    loss = torch.clamp_min(xy_loss + k, 0)
+    if mask is None:
+        return torch.mean(loss), kfiou
+    return masked_mean(loss, mask), kfiou

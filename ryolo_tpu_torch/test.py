@@ -16,12 +16,11 @@ import sys
 import torch
 
 from ryolo_tpu_torch.eval.evaluator import evaluate
-from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference, make_anchors
-from ryolo_tpu_torch.train.trainer import csl_loss_fn
+from ryolo_tpu_torch.nn import Yolo, fuse_for_inference
+from ryolo_tpu_torch.train.trainer import LOSS_FNS
 from ryolo_tpu_torch.utils.checkpoint import load_pth
 from ryolo_tpu_torch.utils.config import load_yaml
-from ryolo_tpu_torch.utils.device import (check_ported, resolve_device,
-                                          set_float32_math)
+from ryolo_tpu_torch.utils.device import resolve_device, set_float32_math
 from ryolo_tpu_torch.utils.logger import logger
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -35,7 +34,6 @@ class Test:
         """Returns ``evaluate``'s ``(mp, mr, map50, map50_95, loss
         items)``."""
         args = self.args
-        check_ported(args.mode)
         if args.dtype == "int8":
             raise NotImplementedError(
                 "--dtype int8: the int8 deploy path comes with ROADMAP §A14")
@@ -53,8 +51,7 @@ class Test:
         model.load_state_dict(load_pth(args.weight_path), strict=True)
         logger.info(f"Loaded {len(model.state_dict())} tensors from "
                     f"{args.weight_path}")
-        loss_fn = csl_loss_fn(make_anchors(STRIDES, model_cfg["anchors"]), nc,
-                              hyp_cfg, device)
+        loss_fn = LOSS_FNS[args.mode](model.anchors, nc, hyp_cfg, device)
         if DTYPES[args.dtype] == torch.float32:
             set_float32_math(device)
         if device.type == "cuda":
@@ -62,9 +59,10 @@ class Test:
         # deploy-fused inference graph (BN fold + RepConv merge)
         model = fuse_for_inference(model, dtype=DTYPES[args.dtype],
                                    device=device)
-        return evaluate(model, loss_fn, data, hyp_cfg, True, args.img_size,
-                        args.batch_size, args.conf_thres, args.iou_thres,
-                        max_targets=args.max_targets, device=device)
+        return evaluate(model, loss_fn, data, hyp_cfg, args.mode == "csl",
+                        args.img_size, args.batch_size, args.conf_thres,
+                        args.iou_thres, max_targets=args.max_targets,
+                        device=device)
 
 
 def build_parser() -> argparse.ArgumentParser:

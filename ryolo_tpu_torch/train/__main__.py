@@ -11,9 +11,10 @@ then the mAP of the deploy-fused model on the val split, and
 ``best.pth``, ``last.pth`` (reference format) and ``last.state`` (the
 port's own format, for ``--resume``) under ``weights/<model_name>/``.
 
-Every ``--ver`` (yolov4, yolov5, yolov7) runs with the CSL head.  Not
-ported yet, and raising: KFIoU (ROADMAP §A2), bf16 training (§A16),
-``--dp``/``--sp`` above 1 (§A15).
+Every ``--ver`` (yolov4, yolov5, yolov7) runs with either head, ``--mode
+csl`` or ``kfiou`` (the loss, anchors and loader targets by mode, as the
+JAX ``train.py`` picks them, :40-52 and :119-126).  Not ported yet, and
+raising: bf16 training (ROADMAP §A16), ``--dp``/``--sp`` above 1 (§A15).
 """
 
 from __future__ import annotations
@@ -28,16 +29,15 @@ import torch
 
 from ryolo_tpu_torch.data.loader import load_data
 from ryolo_tpu_torch.eval.evaluator import evaluate
-from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference, make_anchors
+from ryolo_tpu_torch.nn import Yolo, fuse_for_inference
 from ryolo_tpu_torch.ops.render import to_device
-from ryolo_tpu_torch.train.trainer import (Trainer, csl_loss_fn, fitness,
+from ryolo_tpu_torch.train.trainer import (LOSS_FNS, Trainer, fitness,
                                            one_cycle, weights_init_normal)
 from ryolo_tpu_torch.utils.checkpoint import (import_state_dict,
                                               load_pth, load_train_state,
                                               save_pth, save_train_state)
 from ryolo_tpu_torch.utils.config import load_yaml, save_opts
-from ryolo_tpu_torch.utils.device import (check_ported, resolve_device,
-                                          set_float32_math)
+from ryolo_tpu_torch.utils.device import resolve_device, set_float32_math
 from ryolo_tpu_torch.utils.logger import Logger, logger
 
 NBS = 64  # nominal batch size
@@ -79,7 +79,6 @@ class Train:
 
     def _check_options(self):
         args = self.args
-        check_ported(args.mode)
         if args.dtype != "f32":
             raise NotImplementedError(
                 f"--dtype {args.dtype}: bf16 training comes with ROADMAP "
@@ -122,11 +121,11 @@ class Train:
         set_float32_math(device)
         if device.type == "cuda":
             torch.backends.cudnn.benchmark = True  # fixed shapes
-        loss_fn = csl_loss_fn(make_anchors(STRIDES, model_cfg["anchors"]), nc,
-                              hyp_cfg, device)
+        loss_fn = LOSS_FNS[args.mode](model.anchors, nc, hyp_cfg, device)
+        csl = args.mode == "csl"
 
         train_dataset, train_loader = load_data(
-            data["train"], data["names"], data["type"], hyp_cfg, True,
+            data["train"], data["names"], data["type"], hyp_cfg, csl,
             img_size=args.img_size, batch_size=args.batch_size, augment=True,
             shuffle=True, max_targets=args.max_targets, drop_last=True,
             device_augment=args.device_augment,
@@ -173,7 +172,7 @@ class Train:
 
             # per-epoch eval on the deploy-FUSED graph, twice the batch
             mp, mr, map50, map5095, total_val_loss = evaluate(
-                fuse_for_inference(model), loss_fn, data, hyp_cfg, True,
+                fuse_for_inference(model), loss_fn, data, hyp_cfg, csl,
                 args.img_size, args.batch_size * 2, conf_thres=0.001,
                 iou_thres=0.65, max_targets=args.max_targets, device=device)
 

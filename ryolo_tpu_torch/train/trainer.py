@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from ryolo_tpu_torch.data.device_augment import render_batch, to_device
-from ryolo_tpu_torch.losses import csl_loss
+from ryolo_tpu_torch.losses import csl_loss, kfiou_loss
 
 
 def one_cycle(y1: float = 0.0, y2: float = 1.0, steps: int = 100):
@@ -68,18 +68,40 @@ def make_optimizer(name: str, params, lr: float = 1.0):
     raise NotImplementedError("The specified optimizer is not implemented.")
 
 
+def _on_device(anchors: Sequence[np.ndarray], device):
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in anchors]
+
+
 def csl_loss_fn(anchors: Sequence[np.ndarray], nc: int, hyp: dict,
                 device) -> Callable:
     """``(outputs, batch) -> (loss, items)`` for the CSL head, with the
     per-level anchors placed on ``device`` once."""
-    anc = [torch.as_tensor(a, dtype=torch.float32, device=device)
-           for a in anchors]
+    anc = _on_device(anchors, device)
 
     def loss_fn(outputs, batch):
         return csl_loss(outputs, batch["tgt"], batch["tgt_csl"],
                         batch["tgt_mask"], anc, nc, hyp)
 
     return loss_fn
+
+
+def kfiou_loss_fn(anchors: Sequence[np.ndarray], nc: int, hyp: dict,
+                  device) -> Callable:
+    """``(outputs, batch) -> (loss, items)`` for the KFIoU head (rotated
+    anchors ``(na, 3)`` per level, placed on ``device`` once); the batch
+    needs no ``tgt_csl``."""
+    anc = _on_device(anchors, device)
+
+    def loss_fn(outputs, batch):
+        return kfiou_loss(outputs, batch["tgt"], batch["tgt_mask"], anc, nc,
+                          hyp)
+
+    return loss_fn
+
+
+# the loss of each head, as the JAX train.py's make_loss_fn (:40) picks it
+LOSS_FNS = {"csl": csl_loss_fn, "kfiou": kfiou_loss_fn}
 
 
 class Trainer:

@@ -1,4 +1,4 @@
-"""Device choice and option checks shared by the CLIs."""
+"""Device choice and float32 math shared by the CLIs."""
 
 from __future__ import annotations
 
@@ -21,9 +21,3 @@ def set_float32_math(device: torch.device):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
-
-def check_ported(mode: str):
-    """Raise on a head the port does not have yet (every ``--ver`` runs)."""
-    if mode != "csl":
-        raise NotImplementedError(
-            f"--mode {mode}: KFIoU comes with ROADMAP §A2")

@@ -1,5 +1,6 @@
 """Port checkpoint bridge: JAX tree -> reference-ordered state_dict, for
-YOLOv7, v5 and v4.
+YOLOv7, v5 and v4 with the CSL head and YOLOv7 and v5 with the KFIoU head
+(the same names; only the head convs' shapes differ).
 
 ``ryolo_tpu_torch.utils.checkpoint.state_dict_from_flax`` must equal the
 JAX package's ``export_state_dict`` tensor by tensor, and the port's model
@@ -10,23 +11,25 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import jax_ver, limit_threads
+from tests.torch_parity import jax_ver, limit_threads, ver_mode
 
 VERS = ["yolov7", "yolov5", "yolov4"]
 
 
-@pytest.fixture(scope="module", params=VERS)
+@pytest.fixture(scope="module", params=VERS + ["yolov7-kfiou",
+                                               "yolov5-kfiou"])
 def jax_variables(request):
-    """``(variables, ver)``."""
+    """``(variables, ver, mode)``."""
     limit_threads()
-    return jax_ver(request.param, seed=3)[1], request.param
+    ver, mode = ver_mode(request.param)
+    return jax_ver(ver, seed=3, mode=mode)[1], ver, mode
 
 
 def test_state_dict_from_flax_equals_export(jax_variables):
     from ryolo_tpu.utils.checkpoint import export_state_dict
     from ryolo_tpu_torch.utils.checkpoint import state_dict_from_flax
 
-    variables, ver = jax_variables
+    variables, ver, _ = jax_variables
     want = export_state_dict(variables, ver)
     got = state_dict_from_flax(variables, ver)
     assert list(got.keys()) == list(want.keys())
@@ -50,10 +53,15 @@ def test_load_state_dict_strict_in_reference_order(jax_variables):
                                                   state_dict_layout)
     from tests.torch_parity import MODEL_CFG, NC
 
-    variables, ver = jax_variables
-    model = Yolo(NC, MODEL_CFG, mode="csl", ver=ver)
+    variables, ver, mode = jax_variables
+    model = Yolo(NC, MODEL_CFG, mode=mode, ver=ver)
     sd = state_dict_from_flax(variables, ver)
     model.load_state_dict(sd, strict=True)
+    # the last level's head conv: 3 x (185 + nc) or 18 x (6 + nc) outputs
+    head = {"yolov7": "neck.conv7", "yolov5": "neck.conv19",
+            "yolov4": "neck.conv38"}[ver] + ".conv.0.bias"
+    assert sd[head].shape == ((3 * (185 + NC),) if mode == "csl"
+                              else (18 * (6 + NC),))
     # the port's registration order is the reference .pth order
     assert list(model.state_dict().keys()) == \
         [n for n, _ in state_dict_layout(ver)]
@@ -66,7 +74,7 @@ def test_load_pth_roundtrip(jax_variables, tmp_path):
     from ryolo_tpu_torch.utils.checkpoint import (load_pth,
                                                   state_dict_from_flax)
 
-    variables, ver = jax_variables
+    variables, ver, mode = jax_variables
     path = tmp_path / "w.pth"
     save_pth(variables, ver, str(path))
     got = load_pth(str(path))

@@ -47,21 +47,31 @@ def _args(root, weights, **kw):
 
 
 def _jax_detections(root, jmodel, variables, img=IMG, conf=CONF):
-    """JAX detect.py's infer (:76-86) on the same letterboxed batches."""
+    """JAX detect.py's infer (:76-110) on the same letterboxed batches."""
+    import math
+
     import jax
     import jax.numpy as jnp
 
     from ryolo_tpu.data.datasets import ImageDataset
-    from ryolo_tpu.eval.postprocess import post_process_defer
+    from ryolo_tpu.eval.postprocess import (post_process_defer,
+                                            post_process_kfiou_defer)
     from ryolo_tpu.nn import fuse_for_inference
+    from ryolo_tpu.nn.yolo import STRIDES, make_rotated_anchors
 
     model, dep = fuse_for_inference(jmodel, variables)
+    anchors = make_rotated_anchors(
+        STRIDES, MODEL_CFG["anchors"],
+        [a * math.pi / 180 for a in MODEL_CFG["angles"]])
 
     @jax.jit
     def infer(v, images):
         images = images.astype(jnp.float32) / 255.0
         _, (dec, neck) = model.apply(v, images, train=False, decode="defer")
-        return post_process_defer(dec, neck, 3, 2, conf, IOU)
+        if jmodel.mode == "csl":
+            return post_process_defer(dec, neck, 3, 2, conf, IOU)
+        return post_process_kfiou_defer(dec, neck, 18, anchors, STRIDES,
+                                        conf, IOU)
 
     ds = ImageDataset(str(root / "test"), img_size=img, image_uint8=True)
     out = []
@@ -115,6 +125,55 @@ def test_versions_match_jax(setup, tmp_path, monkeypatch, ver):
                        conf_thres=0.2)).detect()
     _assert_same_detections(got, _jax_detections(root, jmodel, variables,
                                                  img=96, conf=0.2))
+
+
+@pytest.mark.parametrize("ver,conf", [("yolov7", 0.3), ("yolov5", 0.28)])
+def test_kfiou_matches_jax(setup, tmp_path, monkeypatch, ver, conf):
+    """``--mode kfiou`` at 96 px with a ``.pth`` written by the JAX
+    package.  These weights score every candidate at 0.2-0.32, so the
+    thresholds sit there.  Each batch's post-process equals JAX's
+    ``post_process_kfiou_defer`` of the port's own head maps (the same
+    valid rows, scores and classes; boxes within rtol 1e-6, atol 1e-4),
+    and each image's detections pair up with JAX detect.py's whole run
+    (``_assert_same_keep_set``): on the flat synthetic backgrounds rows
+    with scores equal in exact arithmetic trade places by float32
+    rounding."""
+    import jax.numpy as jnp
+
+    import ryolo_tpu_torch.detect as det_mod
+    from ryolo_tpu.eval.postprocess import post_process_kfiou_defer as j_pp
+    from ryolo_tpu.utils.checkpoint import save_pth
+    from tests.test_torch_evaluator import _assert_same_keep_set
+
+    root = setup[0]
+    jmodel, variables = jax_model(ver, seed=1, mode="kfiou")
+    weights = tmp_path / f"{ver}-kfiou.pth"
+    save_pth(variables, ver, str(weights))
+    calls, pp = [], det_mod.post_process_kfiou_defer
+
+    def spy(scores, heads, *a):
+        out = pp(scores, heads, *a)
+        calls.append((scores, heads, a, out))
+        return out
+
+    monkeypatch.setattr(det_mod, "post_process_kfiou_defer", spy)
+    monkeypatch.chdir(tmp_path)
+    got = det_mod.Detect(_args(root, weights, ver=ver, mode="kfiou",
+                               img_size=96, conf_thres=conf)).detect()
+    assert len(calls) == 2 and sum(len(d) for _, d in got) > 100
+    for scores, heads, a, (d, v) in calls:
+        wd, wv = (np.asarray(x) for x in j_pp(
+            tuple(jnp.asarray(s.numpy()) for s in scores),
+            tuple(jnp.asarray(h.permute(0, 2, 3, 1).numpy()) for h in heads),
+            *a))
+        np.testing.assert_array_equal(v.numpy(), wv)
+        np.testing.assert_array_equal(d.numpy()[..., 5:], wd[..., 5:])
+        np.testing.assert_allclose(d.numpy()[..., :5], wd[..., :5],
+                                   rtol=1e-6, atol=1e-4)
+    want = _jax_detections(root, jmodel, variables, img=96, conf=conf)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        _assert_same_keep_set(g, w)
 
 
 def test_letterbox_and_plot_helpers_match_jax(setup):
@@ -185,8 +244,7 @@ def test_bf16_detect(setup, tmp_path, monkeypatch):
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(dtype="int8"), "A14"), (dict(mode="kfiou"), "A2")])
+@pytest.mark.parametrize("change,item", [(dict(dtype="int8"), "A14")])
 def test_unported_options_raise(setup, tmp_path, monkeypatch, change, item):
     from ryolo_tpu_torch.detect import Detect
 

@@ -1,5 +1,6 @@
-"""Port model parity: YOLOv7, v5 and v4 with the CSL head, forward,
-deploy fusion and CSL decode.
+"""Port model parity: YOLOv7, v5 and v4 with the CSL head, and YOLOv7 and
+v5 with the KFIoU head (18 rotated anchors, 6 + nc features each): forward,
+deploy fusion and decode.
 
 Same jittered weights and the same numpy images through the JAX model and
 the port (NHWC/HWIO there, NCHW/OIHW here; head maps compare after
@@ -15,16 +16,18 @@ import pytest
 import torch
 
 from tests.torch_parity import (MODEL_CFG, NC, jax_ver, limit_threads,
-                                nhwc_to_nchw, torch_model)
+                                nhwc_to_nchw, torch_model, ver_mode)
 
-VERS = ["yolov7", "yolov5", "yolov4"]
+# "ver" alone is the CSL head
+MODELS = ["yolov7", "yolov5", "yolov4", "yolov7-kfiou", "yolov5-kfiou"]
 
 
-@pytest.fixture(scope="module", params=VERS)
+@pytest.fixture(scope="module", params=MODELS)
 def models(request):
     limit_threads()
-    jmodel, variables = jax_ver(request.param, seed=0)
-    return jmodel, variables, torch_model(variables, request.param)
+    ver, mode = ver_mode(request.param)
+    jmodel, variables = jax_ver(ver, seed=0, mode=mode)
+    return jmodel, variables, torch_model(variables, ver, mode)
 
 
 def _images(img, seed=1):
@@ -122,7 +125,7 @@ def test_fused_weights_equal_jax_folds(models):
 
 def test_defer_forward_matches_decode(models):
     from ryolo_tpu_torch.nn import STRIDES
-    from ryolo_tpu_torch.nn.heads import decode_csl_defer
+    from ryolo_tpu_torch.nn.heads import decode_csl_defer, decode_kfiou_scores
 
     tmodel = models[2]
     x = nhwc_to_nchw(_images(64, seed=5))
@@ -132,8 +135,13 @@ def test_defer_forward_matches_decode(models):
     assert heads is heads2
     for h, r in zip(heads, raw):
         assert torch.equal(h, r)
-    assert torch.equal(dec, decode_csl_defer(raw, tmodel.anchors, STRIDES,
-                                             NC))
+    if tmodel.mode == "csl":
+        assert torch.equal(dec, decode_csl_defer(raw, tmodel.anchors,
+                                                 STRIDES, NC))
+    else:
+        conf, cls_id = decode_kfiou_scores(raw, tmodel.na, NC)
+        assert torch.equal(dec[0], conf) and torch.equal(dec[1], cls_id)
+        assert conf.shape == (2, 18 * (8 * 8 + 4 * 4 + 2 * 2))
 
 
 def test_repconv_identity_branch_fuses():

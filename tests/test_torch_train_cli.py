@@ -2,8 +2,8 @@
 (``train.py``, ``ryolo_tpu/utils/checkpoint.py``) on the CPU: ``.pth``
 files that load both ways, the ``--weights_path`` partial load, the
 warm-up schedule, 2-epoch runs with and without device augmentation,
-``--resume`` bit-equal to a straight run, and one run against JAX
-``Train(args).train()``."""
+``--resume`` bit-equal to a straight run (CSL and KFIoU), and one run
+against JAX ``Train(args).train()``."""
 
 import copy
 from argparse import Namespace
@@ -249,12 +249,17 @@ def test_resume_is_bit_equal_to_a_straight_run(synth, tmp_path,
                                                monkeypatch):
     """Epoch 1, a stop, then ``--resume``: the same parameters, momentum
     and BatchNorm statistics as 2 epochs straight."""
+    straight = _run(_args(synth, model_name="straight",
+                          device_augment=True), tmp_path, monkeypatch)
+    _check_resume(synth, tmp_path, monkeypatch, straight,
+                  dict(device_augment=True))
+
+
+def _check_resume(synth, tmp_path, monkeypatch, straight, kw):
+    """Run ``kw``'s CLI for an epoch, stop it, ``--resume`` it, and hold
+    its ``last.pth`` and momentum to the straight run's at ``straight``."""
     import ryolo_tpu_torch.train.__main__ as cli
     from ryolo_tpu_torch.utils.checkpoint import load_pth
-
-    kw = dict(device_augment=True)
-    straight = _run(_args(synth, model_name="straight", **kw), tmp_path,
-                    monkeypatch)
 
     save = cli.save_train_state
 
@@ -297,6 +302,51 @@ def test_resume_is_bit_equal_to_a_straight_run(synth, tmp_path,
     assert len(moms) > 250 and all(torch.equal(x, y) for x, y in moms)
 
 
+def test_kfiou_cli_runs_and_resumes(synth, tmp_path, monkeypatch):
+    """``--mode kfiou`` (``--ver yolov5``, the default) for 2 epochs at 64
+    px with device augmentation: the KFIoU loss on targets without CSL
+    bins (``train_step_rendered`` leaves ``tgt_csl`` out), finite losses
+    and metrics each epoch, the KFIoU head in the checkpoints; then
+    ``--resume`` bit-equal to the straight run."""
+    import ryolo_tpu_torch.train.__main__ as cli
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.utils.checkpoint import load_pth
+    from tests.torch_parity import MODEL_CFG
+
+    kw = dict(mode="kfiou", ver="yolov5", device_augment=True)
+    losses, metrics, batches = [], [], []
+    step, evaluate = cli.Trainer.train_step_rendered, cli.evaluate
+
+    def spy_step(self, spec_batch, *a, **kw):
+        batches.append(sorted(spec_batch))
+        loss, items = step(self, spec_batch, *a, **kw)
+        losses.append({k: float(v) for k, v in items.items()})
+        return loss, items
+
+    def spy_eval(*a, **kw):
+        res = evaluate(*a, **kw)
+        metrics.append(res)
+        return res
+
+    monkeypatch.setattr(cli.Trainer, "train_step_rendered", spy_step)
+    monkeypatch.setattr(cli, "evaluate", spy_eval)
+    straight = _run(_args(synth, model_name="straight", **kw), tmp_path,
+                    monkeypatch)
+    assert len(losses) == 4 and len(metrics) == 2
+    assert all("tgt_csl" not in b and "tgt" in b for b in batches)
+    assert all(set(v) == {"reg_loss", "conf_loss", "cls_loss", "total_loss"}
+               and np.isfinite(list(v.values())).all() for v in losses)
+    for m in metrics:
+        assert all(0.0 <= v <= 1.0 for v in m[:4])
+        assert len(m[4]) == 4 and all(np.isfinite(v) for v in m[4].values())
+    sd = load_pth(str(straight / "last.pth"))
+    assert sd["neck.conv19.conv.0.bias"].shape == (18 * (6 + 2),)
+    model = Yolo(2, MODEL_CFG, mode="kfiou", ver="yolov5")
+    model.load_state_dict(sd, strict=True)
+    monkeypatch.undo()
+    _check_resume(synth, tmp_path, monkeypatch, straight, kw)
+
+
 def test_train_state_keeps_pending_accumulation(tmp_path):
     """A state saved between micro-batches (accum_count 1 of 2) carries
     the summed gradients: the next step updates exactly as without the
@@ -331,7 +381,7 @@ def test_train_state_keeps_pending_accumulation(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(mode="kfiou"), "A2"), (dict(dtype="bf16"), "A16"), (dict(dp=2), "A15"), (dict(sp=2), "A15")])
+    (dict(dtype="bf16"), "A16"), (dict(dp=2), "A15"), (dict(sp=2), "A15")])
 def test_unported_options_raise(synth, tmp_path, monkeypatch, change, match):
     from ryolo_tpu_torch.train.__main__ import Train, build_parser
 

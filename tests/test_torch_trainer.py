@@ -151,42 +151,54 @@ def test_train_step_matches_jax():
     check_train_step(jmodel, variables, "yolov7")
 
 
-def check_train_step(jmodel, variables, ver):
+def check_train_step(jmodel, variables, ver, mode="csl"):
     """One SGD step of the JAX ``Trainer.train_step`` and of the port's,
-    from the same weights on the same batch, held to the module's bounds."""
+    from the same weights on the same batch (``mode``'s head and loss),
+    held to the module's bounds."""
     from ryolo_tpu.losses import csl_loss as jax_csl
+    from ryolo_tpu.losses import kfiou_loss as jax_kfiou
     from ryolo_tpu.train.trainer import Trainer as JaxTrainer
-    from ryolo_tpu_torch.nn import STRIDES, make_anchors
-    from ryolo_tpu_torch.train import Trainer, csl_loss_fn
+    from ryolo_tpu_torch.train import LOSS_FNS, Trainer
     from ryolo_tpu_torch.utils.checkpoint import state_dict_from_flax
 
-    tmodel = torch_model(variables, ver)
-    anchors = make_anchors(STRIDES, MODEL_CFG["anchors"])
+    tmodel = torch_model(variables, ver, mode)
+    anchors = tmodel.anchors
     img = np.random.default_rng(7).uniform(0, 1, (2, 128, 128, 3)).astype(
         np.float32)
-    tgt, csl, mask = _targets(8)
+    if mode == "csl":
+        tgt, csl, mask = _targets(8)
+    else:
+        from tests.test_torch_kfiou import kfiou_targets
+
+        (tgt, mask), csl = kfiou_targets(8), None
     lr = 0.01
 
     def jloss(outputs, batch):
-        return jax_csl(outputs, batch["tgt"], batch["tgt_csl"],
-                       batch["tgt_mask"], anchors, NC, HYP)
+        if mode == "csl":
+            return jax_csl(outputs, batch["tgt"], batch["tgt_csl"],
+                           batch["tgt_mask"], anchors, NC, HYP)
+        return jax_kfiou(outputs, batch["tgt"], batch["tgt_mask"], anchors,
+                         NC, HYP)
 
+    batch = {"tgt": tgt, "tgt_mask": mask}
+    if csl is not None:
+        batch["tgt_csl"] = csl
     jtr = JaxTrainer(jmodel, jloss, "SGD", lr)
     state, jl, jitems = jtr.train_step(
         jtr.init_state(variables),
-        {"images": jnp.asarray(img), "tgt": jnp.asarray(tgt),
-         "tgt_csl": jnp.asarray(csl), "tgt_mask": jnp.asarray(mask)},
+        dict({k: jnp.asarray(v) for k, v in batch.items()},
+             images=jnp.asarray(img)),
         jnp.float32(lr), jnp.int32(1))
     want = state_dict_from_flax(
         {"params": jax.device_get(state.params),
          "batch_stats": jax.device_get(state.batch_stats)}, ver)
 
     before = {k: v.detach().clone() for k, v in tmodel.state_dict().items()}
-    ttr = Trainer(tmodel, csl_loss_fn(anchors, NC, HYP, "cpu"), "SGD", lr)
+    ttr = Trainer(tmodel, LOSS_FNS[mode](anchors, NC, HYP, "cpu"), "SGD",
+                  lr)
     tl, titems = ttr.train_step(
-        {"images": nhwc_to_nchw(img), "tgt": torch.from_numpy(tgt),
-         "tgt_csl": torch.from_numpy(csl), "tgt_mask": torch.from_numpy(mask)},
-        lr, 1)
+        dict({k: torch.from_numpy(v) for k, v in batch.items()},
+             images=nhwc_to_nchw(img)), lr, 1)
     item_err = max(abs(titems[k].item() - float(v)) / abs(float(v))
                    for k, v in jitems.items())
     print(f"items: rel err {item_err:.2e}")

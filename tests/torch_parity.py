@@ -1,6 +1,6 @@
 """Shared set-up for the parity tests of the PyTorch port (tests/test_torch_*.py).
 
-Builds the JAX reference model (YOLOv4, v5 or v7, CSL head) with every
+Builds the JAX reference model (YOLOv4, v5 or v7, CSL or KFIoU head) with every
 parameter and BN statistic jittered from a numpy seed (as
 tests/test_deploy.py:25-50 does, so the deploy folds are not trivial), and
 the port's model carrying the same weights through
@@ -25,12 +25,12 @@ def limit_threads():
     torch.set_num_threads(2)
 
 
-def jax_model(ver: str, seed: int = 0):
-    """``(model, variables)``: the JAX ``ver``-CSL model, jittered numpy
-    weights (:func:`random_variables`)."""
+def jax_model(ver: str, seed: int = 0, mode: str = "csl"):
+    """``(model, variables)``: the JAX ``ver`` model with the ``mode`` head,
+    jittered numpy weights (:func:`random_variables`)."""
     from ryolo_tpu.nn import Yolo
 
-    model = Yolo(n_classes=NC, model_config=MODEL_CFG, mode="csl", ver=ver)
+    model = Yolo(n_classes=NC, model_config=MODEL_CFG, mode=mode, ver=ver)
     return model, random_variables(model, np.zeros((1, 64, 64, 3),
                                                    np.float32), seed)
 
@@ -94,19 +94,28 @@ def jax_v7(seed: int = 0):
     return model, jitter_variables(variables, seed)
 
 
-def jax_ver(ver: str, seed: int = 0):
-    """``jax_v7`` for yolov7 (the weights its tests were measured on),
-    :func:`jax_model` for yolov4/v5."""
-    return jax_v7(seed) if ver == "yolov7" else jax_model(ver, seed)
+def jax_ver(ver: str, seed: int = 0, mode: str = "csl"):
+    """``jax_v7`` for yolov7-CSL (the weights its tests were measured on),
+    :func:`jax_model` for the others."""
+    if ver == "yolov7" and mode == "csl":
+        return jax_v7(seed)
+    return jax_model(ver, seed, mode)
 
 
-def torch_model(variables, ver: str):
-    """The port's train-structure ``ver``-CSL model with the JAX weights,
-    eval."""
+def ver_mode(param: str):
+    """``"yolov5"`` -> ``("yolov5", "csl")``; ``"yolov5-kfiou"`` ->
+    ``("yolov5", "kfiou")``."""
+    ver, _, mode = param.partition("-")
+    return ver, mode or "csl"
+
+
+def torch_model(variables, ver: str, mode: str = "csl"):
+    """The port's train-structure ``ver`` model with the ``mode`` head and
+    the JAX weights, eval."""
     from ryolo_tpu_torch.nn import Yolo
     from ryolo_tpu_torch.utils.checkpoint import state_dict_from_flax
 
-    model = Yolo(NC, MODEL_CFG, mode="csl", ver=ver)
+    model = Yolo(NC, MODEL_CFG, mode=mode, ver=ver)
     model.load_state_dict(state_dict_from_flax(variables, ver), strict=True)
     return model.eval()
 
