@@ -7,7 +7,11 @@ when no card is found).  The ``.pth`` is deploy-fused
 forward -> deferred decode (CSL: rows without theta; KFIoU: scores alone)
 -> post-process with rotated NMS on the device, and a background thread
 letterboxes the next batches meanwhile.
-Decode and post-process stay float32 under ``--dtype bf16``.
+Decode and post-process stay float32 under ``--dtype bf16`` and ``int8``.
+``--dtype int8`` is the bf16 graph with its wide BN-backed convs and
+RepConvs int8 x int8 -> int32 (per-output-channel weight scales, a dynamic
+per-tensor activation scale over the whole batch), as the JAX ``detect.py``
+(:64-69) builds it.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference
 from ryolo_tpu_torch.nn.heads import decode_csl_defer, decode_kfiou_scores
 from ryolo_tpu_torch.utils.checkpoint import load_pth
 from ryolo_tpu_torch.utils.config import load_yaml
-from ryolo_tpu_torch.utils.device import resolve_device, set_float32_math
+from ryolo_tpu_torch.utils.device import (DTYPES, resolve_device,
+                                          set_float32_math)
 from ryolo_tpu_torch.utils.logger import logger
 from ryolo_tpu_torch.utils.plot import plot_boxes
 
@@ -69,21 +74,19 @@ class Detect:
 
     def _build_model(self, nc: int, config, device: torch.device):
         args = self.args
-        if args.dtype == "int8":
-            raise NotImplementedError(
-                "--dtype int8: the int8 deploy path comes with ROADMAP §A14")
         model = Yolo(nc, config["model"], mode=args.mode, ver=args.ver)
         model.load_state_dict(load_pth(args.weight_path), strict=True)
         logger.info(f"Loaded {len(model.state_dict())} tensors from "
                     f"{args.weight_path}")
-        dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
+        dtype = DTYPES[args.dtype]
         if device.type == "cuda" and dtype == torch.float32:
             # cuDNN convolutions default to TF32; the f32 path is f32
             set_float32_math(device)
             logger.info("TF32 off: cudnn.allow_tf32=%s matmul.allow_tf32=%s"
                         % (torch.backends.cudnn.allow_tf32,
                            torch.backends.cuda.matmul.allow_tf32))
-        return fuse_for_inference(model, dtype=dtype, device=device), dtype
+        return fuse_for_inference(model, dtype=dtype, device=device,
+                                  quantize=args.dtype == "int8"), dtype
 
     @torch.no_grad()
     def infer(self, model: Yolo, images: np.ndarray, dtype, device, nc: int,
@@ -206,7 +209,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", default="f32",
                         choices=["f32", "bf16", "int8"],
                         help="deployed compute dtype (decode stays f32; "
-                             "int8 is not ported yet)")
+                             "int8: bf16 with the wide convs int8)")
     parser.add_argument("--packed_input", action="store_true",
                         help="accepted for the JAX CLI's surface; the S2D "
                              "input packing is a TPU layout trick and is "

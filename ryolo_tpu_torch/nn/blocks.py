@@ -13,11 +13,19 @@ convs before the bottleneck list ``m``).
 ``deploy=True`` builds the fused inference form that
 :func:`ryolo_tpu_torch.nn.deploy.fuse_for_inference` fills: each
 BN-backed conv is one biased conv and each RepConv one biased 3x3 conv
-(``fused``), so the graph is ``conv(+bias) -> act`` only.  The JAX
-package's TPU layout tricks (S2D stem, the cv1/cv2 merge of
-``parallel_cv12`` :387, chain barriers, int8) are not part of the port:
-``cv1`` and ``cv2`` stay two convs, and the 9- and 13-pools are single
-``F.max_pool2d`` windows (the JAX 5-pool cascade gives the same values).
+(``fused``), so the graph is ``conv(+bias) -> act`` only.  With
+``quantize=True`` the wide ones become :class:`Int8Conv` (the int8 deploy
+path, ``ConvBlock`` :330-365, ``RepConv`` :651-683).  The JAX package's TPU
+layout tricks (S2D stem, the cv1/cv2 merge of ``parallel_cv12`` :387,
+chain barriers) are not part of the port: ``cv1`` and ``cv2`` stay two
+convs, and the 9- and 13-pools are single ``F.max_pool2d`` windows (the
+JAX 5-pool cascade gives the same values).
+
+Under ``torch.autocast(dtype=torch.bfloat16)`` (bf16 training) the convs
+run in bf16 on float32 weights; :class:`BatchNorm2d` takes the bf16
+activation with its float32 weights and statistics, reduces in float32 and
+returns bf16, as ``ryolo_tpu/nn/fused_bn.py:64-76`` does, and the implicit
+priors are cast to the activation's dtype, as the JAX blocks cast them.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ryolo_tpu_torch.ops.int8_conv import int8_conv
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # flax momentum 0.9 (blocks.py:379)
@@ -90,11 +100,52 @@ def _bn(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
+class Int8Conv(nn.Module):
+    """The int8 deploy form of a BN-backed conv or a RepConv: int8 kernel
+    ``kernel_q`` (O, I, kh, kw) with per-output-channel float32 scales
+    ``wscale`` and bias ``bias``, and in static mode the calibrated float32
+    activation scale ``ascale`` (dynamic mode: ``max|x|`` of each batch).
+    Returns the float32 pre-activation
+    (:func:`ryolo_tpu_torch.ops.int8_conv.int8_conv`).  Built by
+    :func:`ryolo_tpu_torch.nn.deploy.fuse_for_inference`, after the model's
+    cast to its compute dtype, which would cast these float32 buffers too.
+    """
+
+    def __init__(self, kernel_q: torch.Tensor, wscale: torch.Tensor,
+                 bias: torch.Tensor, stride: int, pad: int):
+        super().__init__()
+        self.stride, self.pad = stride, pad
+        self.register_buffer("kernel_q", kernel_q)
+        self.register_buffer("wscale", wscale)
+        self.register_buffer("bias", bias)
+        self.register_buffer("ascale", None)  # dynamic mode
+
+    def set_ascale(self, ascale: torch.Tensor):
+        """Static mode: the calibrated activation scale, 0-dim float32."""
+        self.ascale = ascale.float().reshape(())
+
+    def forward(self, x):
+        return int8_conv(x, self.kernel_q, self.wscale, self.bias,
+                         self.stride, self.pad, self.ascale)
+
+
+def _act_to(act, conv, x):
+    """``act(conv(x))``; an :class:`Int8Conv`'s float32 output is cast to
+    ``x``'s (compute) dtype after the activation.  Other convs keep their
+    output dtype: under autocast a float32 image's first conv returns
+    bf16."""
+    out = act(conv(x))
+    return out.to(x.dtype) if isinstance(conv, Int8Conv) else out
+
+
 class ConvBlock(nn.Module):
     """Conv2d (pad (k-1)/2) -> BN -> activation, as ``conv.0``/``conv.1``.
 
     ``bn=False, bias=True`` is a detection-head conv (``conv.0`` with
-    bias).  In deploy form the BN is folded into a biased ``conv.0``.
+    bias).  In deploy form the BN is folded into a biased ``conv.0``; in
+    the int8 deploy form ``conv`` is an :class:`Int8Conv`, whose float32
+    output the activation takes before the cast to the input's (compute)
+    dtype.
     """
 
     def __init__(self, c1: int, c2: int, k: int, s: int, act: str,
@@ -108,9 +159,10 @@ class ConvBlock(nn.Module):
             layers.append(_bn(c2))
         self.conv = nn.Sequential(*layers)
         self.act = ACTIVATIONS[act]
+        self.bn = bn
 
     def forward(self, x):
-        return self.act(self.conv(x))
+        return _act_to(self.act, self.conv, x)
 
 
 class Bottleneck(nn.Module):
@@ -259,7 +311,7 @@ class ImplicitA(nn.Module):
         nn.init.normal_(self.implicit, mean, std)
 
     def forward(self, x):
-        return x + self.implicit
+        return x + self.implicit.to(x.dtype)
 
 
 class ImplicitM(nn.Module):
@@ -271,13 +323,14 @@ class ImplicitM(nn.Module):
         nn.init.normal_(self.implicit, mean, std)
 
     def forward(self, x):
-        return x * self.implicit
+        return x * self.implicit.to(x.dtype)
 
 
 class RepConv(nn.Module):
     """RepVGG block: 3x3-BN + 1x1-BN (+ identity BN), SiLU.
 
-    Deploy form: the branches merged into one biased 3x3 conv ``fused``.
+    Deploy form: the branches merged into one biased 3x3 conv ``fused``
+    (an :class:`Int8Conv` in the int8 deploy form, its SiLU in float32).
     """
 
     def __init__(self, c1: int, c2: int, s: int = 1, deploy: bool = False):
@@ -294,7 +347,7 @@ class RepConv(nn.Module):
 
     def forward(self, x):
         if self.deploy:
-            return F.silu(self.fused(x))
+            return _act_to(F.silu, self.fused, x)
         out = self.rbr_dense(x) + self.rbr_1x1(x)
         if self.rbr_identity is not None:
             out = out + self.rbr_identity(x)

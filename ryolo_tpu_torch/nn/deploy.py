@@ -1,24 +1,31 @@
-"""Deploy-time fusion: BN folding, RepConv merge, Implicit absorb.
+"""Deploy-time fusion: BN folding, RepConv merge, Implicit absorb, and
+the int8 deploy path.
 
 Counterpart of ``ryolo_tpu/nn/deploy.py`` (``_fold_conv_bn`` :35,
 ``_bn_only`` :45, ``_fuse_repconv`` :52, ``_absorb_implicit`` :69,
-``fuse_for_inference`` :407).  The folds run in float64 on the same
-numbers as the JAX package and are stored as float32, so the fused
-weights equal the JAX fused weights.  The result is a ``Yolo(deploy=
-True)`` whose graph is ``conv(+bias) -> act`` only.  Not ported: the
-cv1/cv2 merge and the S2D stem (TPU layout tricks) and int8 (ROADMAP
-§A14).
+``_quantizable`` :153, ``_quantize_node`` :159,
+``calibrate_static_scales`` :347, ``fuse_for_inference`` :407).  The folds
+run in float64 on the same numbers as the JAX package and are stored as
+float32, so the fused weights equal the JAX fused weights.  The result is
+a ``Yolo(deploy=True)`` whose graph is ``conv(+bias) -> act`` only; with
+``quantize=True`` its wide BN-backed convs and RepConvs are
+:class:`ryolo_tpu_torch.nn.blocks.Int8Conv`.  Not ported: the cv1/cv2
+merge and the S2D stem (TPU layout tricks); the int8 choice still follows
+the merged width (:func:`quantized_names`).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+import copy
+from typing import Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ryolo_tpu_torch.nn.blocks import BN_EPS, ConvBlock, RepConv
+from ryolo_tpu_torch.nn.blocks import (BN_EPS, C3, CSP, ELAN1, ELAN2,
+                                       SPPCSPC, ConvBlock, Int8Conv, RepConv)
 from ryolo_tpu_torch.nn.yolo import Yolo
+from ryolo_tpu_torch.ops.int8_conv import activation_scale
 
 
 def _np64(t) -> np.ndarray:
@@ -107,14 +114,120 @@ def fuse_state_dict(model: Yolo) -> dict:
     return {k: torch.as_tensor(np.asarray(v)) for k, v in out.items()}
 
 
+# int8 only for convs at least this wide on input and output
+# (ryolo_tpu/nn/blocks.py:325, deploy.py:150)
+QUANT_MIN_CH = 256
+# blocks whose cv1 and cv2 are two 1x1 convs over the same input: the JAX
+# deploy graph merges each pair into one conv ``cv12`` and decides int8 on
+# the merged width (deploy.py:121-147), for every instance of these blocks
+_PAIRED = (CSP, C3, ELAN1, ELAN2, SPPCSPC)
+
+
+def quantized_names(model: Yolo) -> List[str]:
+    """The modules of the deploy-structure ``model`` that the int8 path
+    quantizes: each RepConv and each BN-backed ``ConvBlock`` (head convs
+    never) with at least :data:`QUANT_MIN_CH` input and output channels,
+    the output of a cv1/cv2 pair of :data:`_PAIRED` counted as the pair's
+    sum, as the JAX package merges them.  Both halves of a pair read one
+    input, so they share one activation scale in either mode."""
+    def wide(conv, width=None):
+        return (conv.in_channels >= QUANT_MIN_CH
+                and (width or conv.out_channels) >= QUANT_MIN_CH)
+
+    mods = dict(model.named_modules())
+    names = []
+    for name, mod in mods.items():
+        if isinstance(mod, RepConv):
+            if wide(mod.fused):
+                names.append(name)
+        elif isinstance(mod, ConvBlock) and mod.bn:
+            parent, _, child = name.rpartition(".")
+            owner = mods[parent]
+            width = None
+            if isinstance(owner, _PAIRED) and child in ("cv1", "cv2"):
+                width = sum(c.conv[0].out_channels
+                            for c in (owner.cv1, owner.cv2))
+            if wide(mod.conv[0], width):
+                names.append(name)
+    return names
+
+
+def quantize_kernel(kernel):
+    """float32 OIHW kernel -> ``(int8 kernel, float32 wscale)``: per
+    output channel symmetric, ``wscale = max|k|/127`` and
+    ``round(k/wscale)`` clipped to ±127, in float64 (``_quantize_node``
+    :159)."""
+    k = _np64(kernel)
+    wscale = np.maximum(np.abs(k).max(axis=(1, 2, 3)), 1e-12) / 127.0
+    kq = np.clip(np.round(k / wscale[:, None, None, None]), -127, 127)
+    return kq.astype(np.int8), np.float32(wscale)
+
+
 def fuse_for_inference(model: Yolo, dtype: Optional[torch.dtype] = None,
-                       device=None) -> Yolo:
+                       device=None, quantize: bool = False) -> Yolo:
     """The fused, eval-mode inference model for ``model`` (train
     structure), in ``dtype`` (default float32) on ``device`` (default the
-    model's).  Decode stays float32 whatever ``dtype`` is."""
+    model's).  Decode stays float32 whatever ``dtype`` is.
+
+    ``quantize=True``: the modules of :func:`quantized_names` run int8 x
+    int8 -> int32 with dynamic per-tensor activation scales
+    (:func:`calibrate_static_scales` makes them static); their scales and
+    bias stay float32 whatever ``dtype`` is, and their outputs are cast to
+    ``dtype``."""
     if device is None:
         device = next(model.parameters()).device
     fused = Yolo(model.n_classes, model.model_config, mode=model.mode,
                  ver=model.ver, deploy=True)
-    fused.load_state_dict(fuse_state_dict(model), strict=True)
-    return fused.to(device=device, dtype=dtype or torch.float32).eval()
+    sd = fuse_state_dict(model)
+    fused.load_state_dict(sd, strict=True)
+    fused = fused.to(device=device, dtype=dtype or torch.float32).eval()
+    if quantize:
+        # after the cast, which would cast the float32 scales too
+        for name in quantized_names(fused):
+            mod = fused.get_submodule(name)
+            attr = "fused" if isinstance(mod, RepConv) else "conv"
+            key = name + (".fused" if attr == "fused" else ".conv.0")
+            conv = fused.get_submodule(key)
+            kq, wscale = quantize_kernel(sd[key + ".weight"])
+            setattr(mod, attr, Int8Conv(
+                torch.from_numpy(kq), torch.from_numpy(wscale),
+                sd[key + ".bias"].float(), conv.stride[0],
+                conv.padding[0]).to(device))
+    return fused
+
+
+def calibrate_static_scales(model: Yolo,
+                            batches: Iterable[torch.Tensor]) -> Yolo:
+    """A static-scale copy of the int8 ``model`` (from
+    ``fuse_for_inference(quantize=True)``): runs ``model`` over
+    ``batches`` (NCHW float images on its device, cast to its compute
+    dtype here), records each quantized conv's activation scale
+    ``max(max|x|, 1e-12)`` of each batch, and gives every
+    :class:`Int8Conv` of the copy the largest as its ``ascale``
+    (``calibrate_static_scales`` :347).  The scales equal the dynamic
+    ones on the calibration batches; the outputs need not be bit-equal
+    (tests/test_deploy.py:118-127)."""
+    amax, hooks = {}, []
+    dtype = next(model.parameters()).dtype
+    for name, mod in model.named_modules():
+        if isinstance(mod, Int8Conv):
+            def record(_mod, args, name=name):
+                s = activation_scale(args[0].float())
+                amax[name] = s if name not in amax else torch.maximum(
+                    amax[name], s)
+            hooks.append(mod.register_forward_pre_hook(record))
+    try:
+        with torch.no_grad():
+            for images in batches:
+                model(images.to(dtype))
+    finally:
+        for h in hooks:
+            h.remove()
+    if not amax:
+        raise ValueError("calibration needs at least one batch and an int8 "
+                         "model")
+    static = copy.deepcopy(model)
+    for name, mod in static.named_modules():
+        if isinstance(mod, Int8Conv):
+            mod.set_ascale(amax[name])
+    return static

@@ -4,7 +4,10 @@ Port of the JAX ``test.py`` (:27-97) with the same arguments plus
 ``--device`` (default ``cuda``; the CPU only when asked, and no fallback
 when no card is found): the rotated mAP@.5:.95 protocol with the val loss
 on the val split of a dataset yaml, through the deploy-fused model
-(:func:`ryolo_tpu_torch.eval.evaluator.evaluate`).
+(:func:`ryolo_tpu_torch.eval.evaluator.evaluate`).  ``--dtype int8`` is the
+bf16 graph with the wide convs int8 (JAX ``test.py:62-66``); the dynamic
+activation scale spans the whole batch, the zero-padded rows of a short
+final batch included, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,10 +23,9 @@ from ryolo_tpu_torch.nn import Yolo, fuse_for_inference
 from ryolo_tpu_torch.train.trainer import LOSS_FNS
 from ryolo_tpu_torch.utils.checkpoint import load_pth
 from ryolo_tpu_torch.utils.config import load_yaml
-from ryolo_tpu_torch.utils.device import resolve_device, set_float32_math
+from ryolo_tpu_torch.utils.device import (DTYPES, resolve_device,
+                                          set_float32_math)
 from ryolo_tpu_torch.utils.logger import logger
-
-DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 class Test:
@@ -34,9 +36,6 @@ class Test:
         """Returns ``evaluate``'s ``(mp, mr, map50, map50_95, loss
         items)``."""
         args = self.args
-        if args.dtype == "int8":
-            raise NotImplementedError(
-                "--dtype int8: the int8 deploy path comes with ROADMAP §A14")
         device = resolve_device(args.device)
         config = load_yaml(args.hyp)
         model_cfg, hyp_cfg = config["model"], config["hyp"]
@@ -58,7 +57,8 @@ class Test:
             torch.backends.cudnn.benchmark = True  # fixed input shape
         # deploy-fused inference graph (BN fold + RepConv merge)
         model = fuse_for_inference(model, dtype=DTYPES[args.dtype],
-                                   device=device)
+                                   device=device,
+                                   quantize=args.dtype == "int8")
         return evaluate(model, loss_fn, data, hyp_cfg, args.mode == "csl",
                         args.img_size, args.batch_size, args.conf_thres,
                         args.iou_thres, max_targets=args.max_targets,
@@ -82,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", default="f32",
                         choices=["f32", "bf16", "int8"],
                         help="deployed compute dtype (decode and the val "
-                             "loss stay f32; int8 is not ported yet)")
+                             "loss stay f32; int8: bf16 with the wide convs "
+                             "int8)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     return parser

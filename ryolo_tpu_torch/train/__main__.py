@@ -13,8 +13,12 @@ port's own format, for ``--resume``) under ``weights/<model_name>/``.
 
 Every ``--ver`` (yolov4, yolov5, yolov7) runs with either head, ``--mode
 csl`` or ``kfiou`` (the loss, anchors and loader targets by mode, as the
-JAX ``train.py`` picks them, :40-52 and :119-126).  Not ported yet, and
-raising: bf16 training (ROADMAP §A16), ``--dp``/``--sp`` above 1 (§A15).
+JAX ``train.py`` picks them, :40-52 and :119-126).  ``--dtype bf16``
+trains with a bf16 forward and float32 parameters, gradients, optimizer,
+BatchNorm statistics and loss (JAX :96-103; :class:`Trainer`), and its
+per-epoch eval fuses in bf16, as the JAX clone of the bf16 model does
+(:304); ``.pth``, ``last.state`` and ``--resume`` stay float32.  Not
+ported yet, and raising: ``--dp``/``--sp`` above 1 (ROADMAP §A15).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ from ryolo_tpu_torch.utils.checkpoint import (import_state_dict,
                                               load_pth, load_train_state,
                                               save_pth, save_train_state)
 from ryolo_tpu_torch.utils.config import load_yaml, save_opts
-from ryolo_tpu_torch.utils.device import resolve_device, set_float32_math
+from ryolo_tpu_torch.utils.device import (DTYPES, resolve_device,
+                                          set_float32_math)
 from ryolo_tpu_torch.utils.logger import Logger, logger
 
 NBS = 64  # nominal batch size
@@ -79,10 +84,6 @@ class Train:
 
     def _check_options(self):
         args = self.args
-        if args.dtype != "f32":
-            raise NotImplementedError(
-                f"--dtype {args.dtype}: bf16 training comes with ROADMAP "
-                "§A16")
         if args.dp > 1 or args.sp > 1:
             raise NotImplementedError(
                 "--dp/--sp above 1: parallel training comes with ROADMAP "
@@ -142,7 +143,8 @@ class Train:
             tile_bank = torch.from_numpy(bank_np).to(device)
             del bank_np
 
-        trainer = Trainer(model, loss_fn, args.optimizer, args.lr)
+        dtype = DTYPES[args.dtype]
+        trainer = Trainer(model, loss_fn, args.optimizer, args.lr, dtype)
 
         start_epoch = 0
         best_fitness = -1.0
@@ -170,9 +172,11 @@ class Train:
                 trainer, train_loader, tile_bank, epoch, iters_per_epoch, nw,
                 accumulate, args.lr * lf(epoch), device, epoch == start_epoch)
 
-            # per-epoch eval on the deploy-FUSED graph, twice the batch
+            # per-epoch eval on the deploy-FUSED graph in the training
+            # dtype, twice the batch
             mp, mr, map50, map5095, total_val_loss = evaluate(
-                fuse_for_inference(model), loss_fn, data, hyp_cfg, csl,
+                fuse_for_inference(model, dtype=dtype), loss_fn, data,
+                hyp_cfg, csl,
                 args.img_size, args.batch_size * 2, conf_thres=0.001,
                 iou_thres=0.65, max_targets=args.max_targets, device=device)
 
@@ -302,7 +306,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="write a torch.profiler trace of the second "
                              "train step")
     parser.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
-                        help="compute dtype (bf16 is not ported yet)")
+                        help="compute dtype (bf16: the forward in bf16, "
+                             "params, grads, optimizer and loss in f32)")
     parser.add_argument("--device_augment", action="store_true",
                         help="render mosaic/warp/HSV/mixup on the device "
                              "(the host decodes and does label math only)")

@@ -15,6 +15,14 @@ The reference recipe (``train.py`` of the reference):
 ``torch.optim.SGD(momentum=0.937, nesterov=True)`` computes what
 ``optax.sgd(nesterov=True)`` does: the first step's momentum is the
 gradient, the update ``g + 0.937·trace``.
+
+bf16 training (JAX ``train.py:96-103``, ``Yolo(dtype=jnp.bfloat16)``): the
+model's forward runs under ``torch.autocast`` in bf16 (convs on float32
+weights cast to bf16, BatchNorm reduced in float32 with a bf16 output,
+bf16 activations); parameters, gradients, the optimizer and the
+BatchNorm running statistics stay float32, and the loss, outside the
+autocast region, reads the bf16 head maps as float32.  bf16 needs no loss
+scaling.
 """
 
 from __future__ import annotations
@@ -108,23 +116,32 @@ class Trainer:
     """Owns the optimizer and the accumulation count of one model + loss."""
 
     def __init__(self, model: nn.Module, loss_fn: Callable,
-                 optimizer_name: str, base_lr: float):
+                 optimizer_name: str, base_lr: float,
+                 dtype: torch.dtype = torch.float32):
         self.model = model
         self.loss_fn = loss_fn  # (outputs, batch) -> (loss, items)
         self.optimizer = make_optimizer(optimizer_name, model.parameters(),
                                         base_lr)
         self.accum_count = 0
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+        self.dtype = dtype  # the forward's compute dtype
 
     def train_step(self, batch: Dict[str, torch.Tensor], lr: float,
                    accumulate: int):
         """One micro-batch: forward in train mode, loss, backward (summed
         into ``.grad``), and the update with learning rate ``lr`` once
-        ``accumulate`` micro-batches are in.  ``batch``: ``images`` (B, 3,
-        S, S) float32 and the targets, on the model's device.  Returns
+        ``accumulate`` micro-batches are in (the forward in ``dtype``, the
+        loss in float32).  ``batch``: ``images`` (B, 3, S, S) float32 and
+        the targets, on the model's device.  Returns
         ``(loss, items)`` as device tensors; nothing here waits for the
         device."""
         self.model.train()
-        loss, items = self.loss_fn(self.model(batch["images"]), batch)
+        images = batch["images"]
+        with torch.autocast(images.device.type, dtype=torch.bfloat16,
+                            enabled=self.dtype == torch.bfloat16):
+            outputs = self.model(images)
+        loss, items = self.loss_fn(outputs, batch)
         loss.backward()
         self.accum_count += 1
         if self.accum_count >= accumulate:

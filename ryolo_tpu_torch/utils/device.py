@@ -1,8 +1,13 @@
-"""Device choice and float32 math shared by the CLIs."""
+"""Device choice, compute dtypes and float32 math shared by the CLIs."""
 
 from __future__ import annotations
 
 import torch
+
+# the compute dtype by --dtype; int8 is the bf16 deploy graph with the wide
+# convs quantized (detect.py:64-69; train takes f32 and bf16)
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+          "int8": torch.bfloat16}
 
 
 def resolve_device(name: str) -> torch.device:

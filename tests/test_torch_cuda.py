@@ -9,7 +9,9 @@ Bounds: tests/test_pallas_iou.py's (fewer than 5e-4 of pairs off by more
 than 1e-3, median difference below 1e-6).  The NMS mask kernel may differ
 from its plain version only on knife-edge pairs (plain IoU within 1e-5 of
 the threshold: sincosf and the CPU's sin/cos may round one ulp apart); the
-scan kernel equals its plain version exactly on the same mask.
+scan kernel equals its plain version exactly on the same mask.  The int8
+deploy conv (``torch._int_mm`` over an int8 im2col, a library product like
+the XLA one it stands for) equals its float64 plain version bit for bit.
 """
 
 import numpy as np
@@ -341,3 +343,46 @@ def test_render_kernel_raises_instead_of_falling_back(cuda, monkeypatch,
     monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         render_specs_banked(rows, slot_rows, *args, n_out=2)
+
+
+@pytest.mark.parametrize("b,c,o,hw,k,stride,channels_last", [
+    (8, 256, 256, 50, 3, 1, False), (8, 512, 256, 25, 1, 1, True),
+    (2, 256, 512, 33, 3, 2, True), (1, 1024, 1024, 5, 3, 1, False)])
+def test_int8_conv_matches_plain_version(cuda, b, c, o, hw, k, stride,
+                                         channels_last):
+    from ryolo_tpu_torch.ops.int8_conv import (LAUNCHES, int8_conv2d,
+                                               int8_conv2d_plain)
+
+    rng = np.random.default_rng(c + k)
+    q = torch.from_numpy(rng.integers(-127, 128, (b, c, hw, hw),
+                                      dtype=np.int8)).to(cuda)
+    if channels_last:
+        q = q.contiguous(memory_format=torch.channels_last)
+    kq = torch.from_numpy(rng.integers(-127, 128, (o, c, k, k),
+                                       dtype=np.int8)).to(cuda)
+    pad = (k - 1) // 2
+    before = LAUNCHES["int8_conv2d"]
+    got = int8_conv2d(q, kq, stride, pad)
+    torch.cuda.synchronize()
+    assert LAUNCHES["int8_conv2d"] == before + 1
+    assert got.dtype == torch.int32
+    want = int8_conv2d_plain(q, kq, stride, pad)
+    assert torch.equal(got, want)
+    if c == 1024:  # a sum far past float32's exact integers (2^24)
+        full = int8_conv2d(torch.full_like(q, 127), torch.full_like(kq, 127),
+                           stride, pad)
+        assert full[0, 0, 2, 2].item() == 9 * 1024 * 127 * 127
+
+
+def test_int8_conv_raises_instead_of_falling_back(cuda):
+    from ryolo_tpu_torch.ops.int8_conv import int8_conv2d
+
+    kq = torch.ones(256, 256, 1, 1, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="M > 16"):  # M = 16
+        int8_conv2d(torch.ones(1, 256, 4, 4, dtype=torch.int8, device=cuda),
+                    kq, 1, 0)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        int8_conv2d(torch.ones(1, 256, 8, 8, dtype=torch.int8, device=cuda),
+                    kq[:250], 1, 0)
+    with pytest.raises(TypeError, match="int8"):
+        int8_conv2d(torch.ones(1, 256, 8, 8, device=cuda), kq, 1, 0)

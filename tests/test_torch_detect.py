@@ -244,14 +244,75 @@ def test_bf16_detect(setup, tmp_path, monkeypatch):
     assert all(p.dtype == torch.bfloat16 for p in model.parameters())
 
 
-@pytest.mark.parametrize("change,item", [(dict(dtype="int8"), "A14")])
-def test_unported_options_raise(setup, tmp_path, monkeypatch, change, item):
-    from ryolo_tpu_torch.detect import Detect
+@pytest.mark.parametrize("ver,mode,conf", [
+    ("yolov7", "csl", CONF), ("yolov4", "csl", 0.2),
+    ("yolov5", "kfiou", 0.28)])
+def test_int8_detect_matches_jax_post_process(setup, tmp_path, monkeypatch,
+                                              ver, mode, conf):
+    """``--dtype int8`` (the bf16 graph with its wide convs int8, JAX
+    detect.py:64-69) at 96 px, each ``--ver`` and ``--mode`` here or in
+    tests/test_torch_evaluator.py (``test_test_cli_int8_matches_jax``:
+    yolov5-CSL, yolov7-KFIoU): the model carries int8 convs, and each
+    batch's detections equal JAX's post-process of the port's own int8
+    head maps (CSL: the same rows, theta within 1e-6; KFIoU: the same
+    valid rows, scores and classes, boxes within rtol 1e-6, atol 1e-4), as
+    ``tests/test_torch_evaluator.py::_check_test_cli`` holds them.  The
+    int8 graph itself is held to JAX's by tests/test_torch_int8.py and
+    tests/test_torch_int8_graph.py.  The dynamic activation scale spans a
+    batch, so the batches are JAX detect.py's: the same letterboxed images
+    in the same order, two a batch, the last one short and not padded."""
+    import jax.numpy as jnp
+    import torch
 
-    root, weights, _, _ = setup
+    import ryolo_tpu_torch.detect as det_mod
+    from ryolo_tpu.eval.postprocess import post_process_defer as j_pp
+    from ryolo_tpu.eval.postprocess import post_process_kfiou_defer as j_kpp
+    from ryolo_tpu.utils.checkpoint import save_pth
+    from ryolo_tpu_torch.nn.blocks import Int8Conv
+
+    root, weights = setup[:2]
+    if (ver, mode) != ("yolov7", "csl"):
+        _, variables = jax_model(ver, seed=1, mode=mode)
+        weights = tmp_path / f"{ver}-{mode}.pth"
+        save_pth(variables, ver, str(weights))
+    name = ("post_process_defer" if mode == "csl"
+            else "post_process_kfiou_defer")
+    calls, pp = [], getattr(det_mod, name)
+
+    def spy(dec, heads, *a):
+        out = pp(dec, heads, *a)
+        calls.append((dec, heads, a, out))
+        return out
+
+    monkeypatch.setattr(det_mod, name, spy)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        Detect(_args(root, weights, **change)).detect()
+    det = det_mod.Detect(_args(root, weights, ver=ver, mode=mode,
+                               img_size=96, conf_thres=conf, dtype="int8"))
+    got = det.detect()
+    assert len(calls) == 2 and sum(len(d) for _, d in got) > 0
+    for dec, heads, a, (d, v) in calls:
+        assert all(h.dtype == torch.bfloat16 for h in heads)
+        heads = tuple(jnp.asarray(h.float().permute(0, 2, 3, 1).numpy())
+                      for h in heads)
+        if mode == "csl":
+            wd, wv = j_pp(jnp.asarray(dec.numpy()), heads, *a)
+            exact, close, tol = [0, 1, 2, 3, 5, 6], [4], dict(atol=1e-6)
+        else:
+            wd, wv = j_kpp(tuple(jnp.asarray(s.numpy()) for s in dec),
+                           heads, *a)
+            exact, close, tol = [5, 6], [0, 1, 2, 3, 4], dict(rtol=1e-6,
+                                                              atol=1e-4)
+        np.testing.assert_array_equal(v.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(d.numpy()[..., exact],
+                                      np.asarray(wd)[..., exact])
+        np.testing.assert_allclose(d.numpy()[..., close],
+                                   np.asarray(wd)[..., close], **tol)
+    for _, d in got:
+        assert d.dtype == np.float32 and (d[:, 5] > conf).all()
+    model, dtype = det._build_model(2, {"model": MODEL_CFG},
+                                    torch.device("cpu"))
+    assert dtype == torch.bfloat16
+    assert sum(isinstance(m, Int8Conv) for m in model.modules()) > 20
 
 
 def test_cuda_without_card_raises(monkeypatch):

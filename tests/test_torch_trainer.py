@@ -151,10 +151,21 @@ def test_train_step_matches_jax():
     check_train_step(jmodel, variables, "yolov7")
 
 
-def check_train_step(jmodel, variables, ver, mode="csl"):
+# the float32 step's bounds (module docstring): loss items (rtol), BN
+# statistics (of the tensor's largest entry), the update's L2 error in the
+# worst tensor and over all parameters
+F32_BOUNDS = {"items": 2e-4, "stats": 2e-4, "tensor": 0.02, "total": 0.0065}
+
+
+def check_train_step(jmodel, variables, ver, mode="csl", img_size=128,
+                     bf16=False, bounds=F32_BOUNDS):
     """One SGD step of the JAX ``Trainer.train_step`` and of the port's,
-    from the same weights on the same batch (``mode``'s head and loss),
-    held to the module's bounds."""
+    from the same weights on the same batch (``mode``'s head and loss) of
+    ``img_size`` px images, in float32 or, with ``bf16``, with a bf16
+    forward on both sides (JAX ``Yolo(dtype=bfloat16)``, the port's
+    ``Trainer(dtype=torch.bfloat16)``), held to ``bounds`` (bf16:
+    tests/test_torch_trainer_bf16.py's ``check_bf16_update``); returns the
+    measured gaps."""
     from ryolo_tpu.losses import csl_loss as jax_csl
     from ryolo_tpu.losses import kfiou_loss as jax_kfiou
     from ryolo_tpu.train.trainer import Trainer as JaxTrainer
@@ -163,8 +174,10 @@ def check_train_step(jmodel, variables, ver, mode="csl"):
 
     tmodel = torch_model(variables, ver, mode)
     anchors = tmodel.anchors
-    img = np.random.default_rng(7).uniform(0, 1, (2, 128, 128, 3)).astype(
-        np.float32)
+    img = np.random.default_rng(7).uniform(
+        0, 1, (2, img_size, img_size, 3)).astype(np.float32)
+    if bf16:
+        jmodel = jmodel.clone(dtype=jnp.bfloat16)
     if mode == "csl":
         tgt, csl, mask = _targets(8)
     else:
@@ -189,40 +202,112 @@ def check_train_step(jmodel, variables, ver, mode="csl"):
         dict({k: jnp.asarray(v) for k, v in batch.items()},
              images=jnp.asarray(img)),
         jnp.float32(lr), jnp.int32(1))
-    want = state_dict_from_flax(
+    want = {k: v.numpy() for k, v in state_dict_from_flax(
         {"params": jax.device_get(state.params),
-         "batch_stats": jax.device_get(state.batch_stats)}, ver)
+         "batch_stats": jax.device_get(state.batch_stats)}, ver).items()}
 
-    before = {k: v.detach().clone() for k, v in tmodel.state_dict().items()}
-    ttr = Trainer(tmodel, LOSS_FNS[mode](anchors, NC, HYP, "cpu"), "SGD",
-                  lr)
-    tl, titems = ttr.train_step(
-        dict({k: torch.from_numpy(v) for k, v in batch.items()},
-             images=nhwc_to_nchw(img)), lr, 1)
+    before = {k: v.detach().clone().numpy()
+              for k, v in tmodel.state_dict().items()}
+
+    def port_step(model, dtype):
+        ttr = Trainer(model, LOSS_FNS[mode](anchors, NC, HYP, "cpu"), "SGD",
+                      lr, dtype)
+        return ttr.train_step(
+            dict({k: torch.from_numpy(v) for k, v in batch.items()},
+                 images=nhwc_to_nchw(img)), lr, 1)[1]
+
+    titems = port_step(tmodel, torch.bfloat16 if bf16 else torch.float32)
     item_err = max(abs(titems[k].item() - float(v)) / abs(float(v))
                    for k, v in jitems.items())
     print(f"items: rel err {item_err:.2e}")
-    assert item_err <= 2e-4, item_err
-    got = tmodel.state_dict()
-    stat_errs, errs, d_gots, d_wants = [], [], [], []
-    for k, w in want.items():
-        g, w = got[k].numpy(), np.asarray(w)
-        if k.endswith("num_batches_tracked"):
-            continue
-        if k.endswith(("running_mean", "running_var")):
-            stat_errs.append((np.abs(g - w) / (np.abs(w).max())).max())
-            continue
-        d_want = (w - before[k].numpy()).astype(np.float64).ravel()
-        d_got = (g - before[k].numpy()).astype(np.float64).ravel()
-        assert np.abs(d_want).max() > 0, k
-        errs.append(np.linalg.norm(d_got - d_want) / np.linalg.norm(d_want))
-        d_gots.append(d_got)
-        d_wants.append(d_want)
-    d_got, d_want = np.concatenate(d_gots), np.concatenate(d_wants)
-    total = np.linalg.norm(d_got - d_want) / np.linalg.norm(d_want)
+    assert item_err <= bounds["items"], item_err
+    got = {k: v.numpy() for k, v in tmodel.state_dict().items()}
+    stat_errs, errs, total = update_gaps(got, want, before)
     print(f"stats: max {max(stat_errs):.2e}; update: per tensor max "
-          f"{max(errs):.4f}, all parameters {total:.5f}")
-    assert max(stat_errs) <= 2e-4, max(stat_errs)
-    assert max(errs) <= 0.02, max(errs)
-    assert total <= 0.0065, total
+          f"{max(errs.values()):.4f}, all parameters {total:.5f}")
+    assert max(stat_errs) <= bounds["stats"], max(stat_errs)
     assert len(stat_errs) > 150 and len(errs) > 200
+    for k, v in tmodel.state_dict().items():
+        assert not v.is_floating_point() or v.dtype == torch.float32, k
+    gaps = {"items": item_err, "stats": max(stat_errs),
+            "tensor": max(errs.values()), "total": total}
+    if not bf16:
+        assert max(errs.values()) <= bounds["tensor"], max(errs.values())
+        assert total <= bounds["total"], total
+        return gaps
+    # the port's float32 step from the same weights: JAX's float32 step
+    # within the float32 bounds above, so its distance from JAX's bf16 step
+    # is JAX's own bf16-to-float32 distance
+    t32 = torch_model(variables, ver, mode)
+    port_step(t32, torch.float32)
+    f32 = {k: v.numpy() for k, v in t32.state_dict().items()}
+    return dict(gaps, **check_bf16_update(
+        errs, *update_gaps(f32, want, before)[1:],
+        total_gap(got, f32, before), bounds))
+
+
+def check_bf16_update(errs, env, env_total, own_total, bounds):
+    """The bf16 step's update (tests/test_torch_trainer_bf16.py says why):
+    ``errs`` and ``env`` hold each parameter's update error against JAX's
+    bf16 step, of the port's bf16 step and of its float32 one.  Each
+    parameter where ``env`` is below ``bounds["held_below"]`` (at least
+    ``bounds["held"]`` of them) lies within ``bounds["envelope"]`` times
+    its ``env``; the port's bf16 step lies ``own_total`` from its float32
+    one, within ``bounds["own"]`` times ``env_total``, JAX's own
+    bf16-to-float32 distance over all parameters.  A step that leaves the
+    parameters unchanged (an error of 1 in each, over 3 times an ``env``
+    below 0.3) and the float32 step (``own_total`` 0) fail these bounds,
+    and the check asserts that they do."""
+    held = [k for k, e in env.items() if e < bounds["held_below"]]
+    assert len(held) >= bounds["held"], sorted(held)
+
+    def gaps(errs, own_total):
+        return max(errs[k] / env[k] for k in held), own_total / env_total
+
+    def within(ratio, own):
+        return (ratio <= bounds["envelope"]
+                and bounds["own"][0] <= own <= bounds["own"][1])
+
+    ratio, own = gaps(errs, own_total)
+    print(f"{len(held)} parameters whose update JAX's bf16 rounding moves "
+          f"by less than {bounds['held_below']}: within {ratio:.3f} times "
+          f"that (worst {max(errs[k] for k in held):.4f}); the port's bf16 "
+          f"step lies {own_total:.4f} from its float32 step, {own:.3f} "
+          f"times JAX's own {env_total:.4f}")
+    assert within(ratio, own), (ratio, own)
+    assert not within(*gaps(dict.fromkeys(env, 1.0), 1.0))
+    assert not within(*gaps(env, 0.0))
+    return {"held": len(held), "envelope": ratio, "own": own}
+
+
+def _updates(sd, before):
+    """Each parameter's update ``sd - before`` (float64, flat), BatchNorm
+    statistics left out."""
+    return {k: (w - before[k]).astype(np.float64).ravel()
+            for k, w in sd.items()
+            if not k.endswith(("num_batches_tracked", "running_mean",
+                               "running_var"))}
+
+
+def update_gaps(got, want, before):
+    """``(BN statistics errors, {parameter: update error}, update error over
+    all parameters)`` of state dict ``got`` against ``want``: a statistic's
+    error over the tensor's largest entry, an update's as the L2 norm of its
+    error over the L2 norm of ``want``'s update."""
+    stat_errs = [np.abs(got[k] - w).max() / np.abs(w).max()
+                 for k, w in want.items()
+                 if k.endswith(("running_mean", "running_var"))]
+    d_got, d_want = _updates(got, before), _updates(want, before)
+    errs = {}
+    for k, dw in d_want.items():
+        assert np.abs(dw).max() > 0, k
+        errs[k] = np.linalg.norm(d_got[k] - dw) / np.linalg.norm(dw)
+    return stat_errs, errs, total_gap(got, want, before)
+
+
+def total_gap(got, want, before):
+    """The update error of ``got`` against ``want`` over all parameters."""
+    d_got, d_want = _updates(got, before), _updates(want, before)
+    dg = np.concatenate([d_got[k] for k in d_want])
+    dw = np.concatenate(list(d_want.values()))
+    return np.linalg.norm(dg - dw) / np.linalg.norm(dw)
