@@ -79,11 +79,27 @@ Phases, each reported on its own lines:
    with every quantized conv's int32 accumulator held to its float64 plain
    version bit for bit; card against CPU at 256 px within the
    int8-vs-float32 envelope; the ``test`` CLI as in phase 8 with ``--dtype
-   int8``; then YOLOv5-CSL's int8 detect at eval load.
+   int8``; then YOLOv5-CSL's int8 detect at eval load;
+17. data parallelism (``train --dp N``, ``ryolo_tpu_torch.parallel``):
+   (a) phase 6's run (v7-CSL, 800 px, batch 8, taps + bank, 7 steps) as
+   one rank of a world-1 NCCL group on ``cuda:0`` (synced BatchNorms, loss
+   means over global counts, the gradient all-reduce), its first update
+   against the plain ``Trainer``'s on the same batch, its step times beside
+   phase 6's, one profiled step with the all-reduces' device time by kind;
+   (b) two ranks spawned by ``ryolo_tpu_torch.parallel.launch``, both on
+   ``cuda:0`` over gloo (NCCL refuses two ranks on one device; gloo's
+   all-reduce and broadcast take CUDA tensors, and its object collectives
+   go through the host), each loading its half of the global batch of 8:
+   the first step held against (a)'s on the same global batch, one render
+   launch a rank a step, then ``Train(args).train()`` in each rank for an
+   epoch of 2 steps with the sharded eval (one ``nms_mask`` and one
+   ``nms_scan`` a rank) and ``--resume`` to a second, checkpoints from rank
+   0 alone; (c) the same over NCCL on two cards, only where there are two.
+   A failing rank fails the script.
 
 Phases 11-14 and 16 run beside the YOLOv7-CSL phases that share their data:
 their detect and eval after phase 9, their training (and phase 15) after
-phase 10.  The eval
+phase 10; phase 17 runs last.  The eval
 runs of v7-CSL, v5-CSL and v7-KFIoU also count, on their second batch,
 the pairs of the NMS mask that the far reject leaves, for ``nms_mask``'s
 bound at the path's own shape.
@@ -1044,7 +1060,8 @@ def phase_train(split, names, cfg, ver="yolov7", runs=TRAIN_RUNS,
                                                        "wall", "ips"))
                 + f"; peak {steady['mem']:.2f} GiB; launches "
                 f"{launches[run]} over {steps} steps")
-            results[run] = steady
+            results[run] = dict(steady, walls=[r["wall"] for r in rows[1:]],
+                                steps=[r["step"] for r in rows[1:]])
     finally:
         for m, k, fn in saved:
             setattr(m, k, fn)
@@ -2267,6 +2284,481 @@ def phase_train_cli(tmp, names, cfg, dtype="f32"):
     return dict(render_launches=launches)
 
 
+# phase 17: data parallelism (train --dp N).  (b)'s steps a rank (the first
+# is held against (a)'s first), before its train CLI runs
+DP_SHARED_STEPS = 3
+# the learning rate of the first step, the one compared, as phase 7's
+# (the warm-up's 1e-5 moves a BatchNorm weight near 1 by a few ulps, which
+# rounding then decides); the steps after it take the warm-up's
+DP_CHECK_LR = 0.01
+# a --dp step against another on the same global batch: loss items (rtol),
+# BN statistics (of the tensor's largest entry), the update's L2 error in
+# the worst tensor and over all parameters.  The items and statistics agree
+# to ~1e-6 (H100 80GB HBM3, 700 W); the update only to ~1e-2: cuDNN picks
+# other convolution algorithms at 4 images than at 8 (and with
+# ``cudnn.benchmark`` on than off), and the backward through random-weight
+# BatchNorms amplifies their rounding (phase 17(a) measures that envelope
+# on the plain Trainer).  Ranks averaging per-rank means instead miss the
+# update by ~0.5 (tests/test_torch_parallel_step.py).
+DP_STEP_BOUNDS = {"items": 1e-5, "stats": 1e-4, "tensor": 0.05,
+                  "total": 0.03}
+
+
+def spread(v):
+    """``median [min-max]`` of a list of ms."""
+    return f"{np.median(v):.1f} [{min(v):.1f}-{max(v):.1f}]"
+
+
+def dp_loader(split, names, cfg, shard, batch, dev):
+    """Phase 6's spec loader (taps, tile bank, the same seed) at ``batch``
+    a rank, sharded ``shard=(rank, n)``, and the bank on ``dev``."""
+    from ryolo_tpu_torch.data.loader import load_data
+
+    dataset, loader = load_data(
+        split, names, "DOTA", cfg["hyp"], True, img_size=IMG,
+        batch_size=batch, augment=True, shuffle=True, drop_last=True,
+        seed=SEED, workers=4, shard=shard, device_augment=True,
+        cache_images=True, device_cache=True)
+    return loader, torch.from_numpy(dataset.build_tile_bank()).to(dev)
+
+
+def seeded_model(cfg, dev):
+    """Phase 6's v7-CSL with the implicit priors (which
+    ``weights_init_normal`` leaves) drawn from a fixed seed too, so that
+    every process builds the same weights."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        return train_model(cfg, dev)
+
+
+def dp_trainer(cfg, mesh, dev):
+    """Phase 6's model and optimizer under ``mesh``: synced BatchNorms,
+    global loss means, summed gradients."""
+    from ryolo_tpu_torch.parallel import convert_sync_bn, replicate
+    from ryolo_tpu_torch.train import LOSS_FNS, Trainer
+
+    model = replicate(convert_sync_bn(seeded_model(cfg, dev)), mesh)
+    loss_fn = LOSS_FNS["csl"](model.anchors, NC, cfg["hyp"], dev,
+                              reducer=mesh)
+    return Trainer(model, loss_fn, "SGD", 0.01, mesh=mesh)
+
+
+def warmup_step(step, iters, cfg):
+    """Phase 6's warm-up ``(accumulate, lr)`` at global step ``step``; step
+    1, the compared one, at ``DP_CHECK_LR``."""
+    from ryolo_tpu_torch.train import one_cycle
+
+    if step == 1:
+        return 1, DP_CHECK_LR
+    nw = max(int(80 * iters * cfg["hyp"]["warmup_prop"]), 1000)
+    acc = max(1, int(np.interp(step, [0, nw], [1, NBS / BATCH]).round()))
+    lr = float(np.interp(step, [0, nw],
+                         [0.0, 0.01 * one_cycle(1, cfg["hyp"]["lrf"], 80)(0)]))
+    return acc, lr
+
+
+def cpu_state(model):
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def check_step(name, got, items, want, want_items, before):
+    """One step's state and loss items against another's, within
+    ``DP_STEP_BOUNDS``."""
+    bounds = DP_STEP_BOUNDS
+    worst = max(abs(items[k] / want_items[k] - 1) for k in want_items)
+    gaps = step_gaps(got, want, before)
+    log("dp", f"{name}: loss items within {worst:.2e} (rtol "
+        f"{bounds['items']:.3g}); BN running statistics within {gaps[0]:.2e}"
+        f" of each tensor's largest entry (bound {bounds['stats']:.3g}); "
+        f"update error {gaps[1]:.2e} in the worst tensor (bound "
+        f"{bounds['tensor']:.3g}), {gaps[2]:.2e} over all parameters (bound "
+        f"{bounds['total']:.3g})")
+    check(worst <= bounds["items"], (name, items, want_items))
+    check(all(g <= bounds[k] for g, k in zip(
+        gaps, ("stats", "tensor", "total"))), (name, gaps, bounds))
+
+
+def collectives_by_kind(prof):
+    """Device ms of a profiled step in the ``dp.<name>`` ranges that
+    :func:`dp_ranges` opens (each all-reduce by what it reduces; the synced
+    BatchNorm's forward and backward, their all-reduces included), and of
+    every NCCL kernel."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith("dp."):
+            out[e.key[3:]] = getattr(e, "device_time_total",
+                                     getattr(e, "cuda_time_total", 0)) / 1e3
+    out["nccl_kernels"] = sum(
+        e.self_device_time_total for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "nccl" in e.name.lower()) / 1e3
+    return out
+
+
+def dp_ranges():
+    """Profiler ranges for a step of the ``--dp`` path: each
+    ``torch.distributed.all_reduce`` named by the ``COLLECTIVES`` count
+    its caller has just raised (``dp.bn``, ``dp.loss``, ``dp.grad``), and
+    the synced BatchNorm's forward and backward (``dp.bn_forward``,
+    ``dp.bn_backward``)."""
+    import torch.distributed as dist
+    from ryolo_tpu_torch.parallel import COLLECTIVES, sync_bn
+
+    seen, orig = dict(COLLECTIVES), dist.all_reduce
+    fn = sync_bn._SyncBatchNormFn
+
+    def all_reduce(*a, **kw):
+        kind = next((k for k in COLLECTIVES if COLLECTIVES[k] != seen[k]),
+                    "other")
+        seen.update(COLLECTIVES)
+        with torch.profiler.record_function(f"dp.{kind}"):
+            return orig(*a, **kw)
+
+    def ranged(name, f):
+        def wrapped(*a, **kw):
+            with torch.profiler.record_function(f"dp.{name}"):
+                return f(*a, **kw)
+        return staticmethod(wrapped)
+
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        # the class's own staticmethod objects, put back as they were
+        saved = {k: fn.__dict__[k] for k in ("forward", "backward")}
+        fn.forward = ranged("bn_forward", fn.forward)
+        fn.backward = ranged("bn_backward", fn.backward)
+        try:
+            with patched([(dist, "all_reduce", all_reduce)]):
+                yield
+        finally:
+            for k, v in saved.items():
+                setattr(fn, k, v)
+    return ctx()
+
+
+def phase_dp_world1(split, names, cfg, phase6, device="cuda:0",
+                    backend="nccl"):
+    """Phase 17(a): the ``--dp`` path in one rank of a world-1 ``backend``
+    group on ``device`` (synced BatchNorms, global loss means, the
+    gradient all-reduce), phase 6's run (v7-CSL, 800 px, batch 8, taps +
+    bank) for ``TRAIN_STEPS`` steps; its first update against the plain
+    ``Trainer``'s on the same batch; one profiled step."""
+    from ryolo_tpu_torch.ops import cuda_render
+    from ryolo_tpu_torch.parallel import COLLECTIVES, close_mesh, make_mesh
+    from ryolo_tpu_torch.parallel.mesh import free_port
+    from ryolo_tpu_torch.train import Trainer
+
+    dev = torch.device(device)
+    torch.cuda.empty_cache()
+    loader, bank = dp_loader(split, names, cfg, (0, 1), BATCH, dev)
+    iters, it = len(loader), iter(loader)
+    batches = [next(it) for _ in range(TRAIN_STEPS + 1)]
+    acc, lr = warmup_step(1, iters, cfg)
+    plain = {}
+    # the plain Trainer's first step with cuDNN's benchmarked algorithms
+    # (the train CLI's setting, and the --dp runs') and with its default
+    # ones: the envelope of the convolutions' rounding alone
+    for benchmark in (False, True):
+        torch.backends.cudnn.benchmark = benchmark
+        model = seeded_model(cfg, dev)
+        before = cpu_state(model)
+        trainer = Trainer(model, train_loss_fn(cfg, model, dev), "SGD", 0.01)
+        _, items = trainer.train_step_rendered(batches[0], bank, lr, acc,
+                                               BATCH)
+        plain[benchmark] = (cpu_state(model),
+                            {k: v.item() for k, v in items.items()})
+        del trainer, model
+    torch.cuda.empty_cache()
+    envelope = step_gaps(plain[False][0], plain[True][0], before)
+    item_env = max(abs(v / plain[True][1][k] - 1)
+                   for k, v in plain[False][1].items())
+    log("dp", "(a) the plain Trainer's first step, cuDNN's default "
+        f"algorithms against its benchmarked ones: loss items within "
+        f"{item_env:.2e}, BN statistics {envelope[0]:.2e}, update error "
+        f"{envelope[1]:.2e} in the worst tensor, {envelope[2]:.2e} over all "
+        "parameters")
+    plain_sd, plain_items = plain[True]
+
+    mesh = make_mesh(1, device=device, backend=backend,
+                     init_method=f"tcp://localhost:{free_port()}", rank=0)
+    try:
+        trainer = dp_trainer(cfg, mesh, dev)
+        walls, steps, first = [], [], None
+        collectives = dict(COLLECTIVES)
+        # the run's launches only: the count set to 0 just before
+        cuda_render.LAUNCHES["render"] = 0
+        for step in range(1, TRAIN_STEPS + 1):
+            acc, lr = warmup_step(step, iters, cfg)
+            before_launch = cuda_render.LAUNCHES["render"]
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    s.record()
+                    _, items = trainer.train_step_rendered(
+                        batches[step - 1], bank, lr, acc, BATCH)
+                    e.record()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            steps.append(s.elapsed_time(e))
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            check(step == 1 or syncs == 0, f"(a) step {step}: {syncs} host "
+                  "syncs: " + "; ".join(str(w.message)[:200] for w in caught))
+            check(cuda_render.LAUNCHES["render"] - before_launch == 1,
+                  f"(a) step {step}: render launches")
+            vals = {k: v.item() for k, v in items.items()}
+            check(all(math.isfinite(v) for v in vals.values()), vals)
+            if step == 1:
+                first = (cpu_state(trainer.model), vals)
+        launches = cuda_render.LAUNCHES["render"]
+        per_step = {k: (COLLECTIVES[k] - collectives[k]) / TRAIN_STEPS
+                    for k in COLLECTIVES}
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        acc, lr = warmup_step(TRAIN_STEPS + 1, iters, cfg)
+        torch.cuda.synchronize()
+        with dp_ranges(), torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step_rendered(batches[-1], bank, lr, acc, BATCH)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        kinds = {k: 0.0 for k, _ in KERNEL_KINDS}
+        kinds["other"] = 0.0
+        for e in prof.events():  # kernels, not the dp ranges' annotations
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("dp.")):
+                kind = next((k for k, keys in KERNEL_KINDS
+                             if any(key in e.name for key in keys)), "other")
+                kinds[kind] += e.self_device_time_total / 1e3
+        busy = sum(kinds.values())
+        coll = collectives_by_kind(prof)
+        del trainer
+    finally:
+        close_mesh()
+    check_step("(a) the world-1 --dp step against the plain Trainer's, the "
+               "same first batch", first[0], first[1], plain_sd,
+               plain_items, before)
+    ref = phase6["tile bank, taps"]
+    log("dp", f"(a) yolov7, a 1-rank {backend} group on {device}, {IMG} px, "
+        f"batch {BATCH}, taps + bank, steps 2..{TRAIN_STEPS}: step "
+        f"{spread(steps[1:])} ms, wall {spread(walls[1:])} ms (median [min-max]); phase 6 "
+        f"(native BatchNorm, no group): step {spread(ref['steps'])} ms, wall "
+        f"{spread(ref['walls'])} ms; render launches {launches} over "
+        f"{TRAIN_STEPS} steps; collectives a step {per_step}")
+    log("dp", f"(a) one profiled step: wall {prof_wall:.1f} ms, device busy "
+        f"{busy:.1f} ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                       kinds.items())
+        + " ms (phase 15's float32 step for the native BatchNorm); device ms "
+        "in the dp ranges: " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in coll.items()))
+    check(launches == TRAIN_STEPS, launches)
+    return dict(render_launches=launches, before=before, first=first)
+
+
+def dp_rank(out, split, cli_root, names, cfg, steps):
+    """One rank of phase 17(b)/(c), in a process of its own: ``steps``
+    steps of phase 6's run on this rank's share (b = 8 / dp), then the
+    train CLI for an epoch and ``--resume`` to a second; what it saw goes
+    to ``<out>/rank<r>.pt``."""
+    import ryolo_tpu_torch.train.__main__ as cli
+    from ryolo_tpu_torch.ops import cuda_nms, cuda_render
+    from ryolo_tpu_torch.parallel import current_mesh
+    from ryolo_tpu_torch.train import Trainer
+    from ryolo_tpu_torch.utils.device import set_float32_math
+
+    mesh = current_mesh()
+    dev, b = mesh.device, BATCH // mesh.dp
+    set_float32_math(dev)  # a new process: TF32 off, as phase 1 sets it
+    torch.backends.cudnn.benchmark = True  # as in (a) and the train CLI
+    loader, bank = dp_loader(split, names, cfg, (mesh.rank, mesh.dp), b, dev)
+    trainer = dp_trainer(cfg, mesh, dev)
+    res = {"rank": mesh.rank, "device": str(dev), "walls": [],
+           "step_launches": [], "mixups": []}
+    it = iter(loader)
+    cuda_render.LAUNCHES["render"] = 0
+    for step in range(1, steps + 1):
+        batch = next(it)
+        res["mixups"].append(int((batch["spec_mix_idx"] >= 0).sum()))
+        acc, lr = warmup_step(step, len(loader), cfg)
+        n0 = cuda_render.LAUNCHES["render"]
+        t0 = time.perf_counter()
+        _, items = trainer.train_step_rendered(batch, bank, lr, acc, b)
+        torch.cuda.synchronize()
+        res["walls"].append((time.perf_counter() - t0) * 1e3)
+        res["step_launches"].append(cuda_render.LAUNCHES["render"] - n0)
+        if step == 1:
+            first = batch
+            res["first"] = (cpu_state(trainer.model),
+                            {k: v.item() for k, v in items.items()})
+    res["render_launches"] = cuda_render.LAUNCHES["render"]
+    res["extra_slots"] = loader.extra_slots
+    # the control: each rank's loss a mean over its own rows, the gradients
+    # averaged (what a DistributedDataParallel wrapper around the
+    # single-process loss computes), the BatchNorms still synced
+    del trainer
+    torch.cuda.empty_cache()
+    trainer = dp_trainer(cfg, mesh, dev)
+    per_rank = train_loss_fn(cfg, trainer.model, dev)
+    trainer.loss_fn = lambda out, batch: (
+        per_rank(out, batch)[0] / mesh.dp, {})
+    trainer.train_step_rendered(first, bank, DP_CHECK_LR, 1, b)
+    res["averaged"] = cpu_state(trainer.model)
+    del trainer, bank, it
+    torch.cuda.empty_cache()
+
+    writes, epochs, per_step, evals = [], [], [], []
+    step_fn, train_epoch, evaluate = (Trainer.train_step_rendered,
+                                      cli.Train._train_epoch, cli.evaluate)
+
+    def counted_step(self, *a, **kw):
+        n0 = cuda_render.LAUNCHES["render"]
+        out = step_fn(self, *a, **kw)
+        per_step.append(cuda_render.LAUNCHES["render"] - n0)
+        return out
+
+    def spy_epoch(self, trainer, loader, bank, epoch, *a):
+        epochs.append(epoch)
+        return train_epoch(self, trainer, loader, bank, epoch, *a)
+
+    def spy_eval(*a, **kw):
+        n0 = dict(cuda_nms.LAUNCHES)
+        t0 = time.perf_counter()
+        out = evaluate(*a, **kw)
+        evals.append({"metrics": [float(v) for v in out[:4]],
+                      "loss": out[4], "ms": (time.perf_counter() - t0) * 1e3,
+                      **{k: cuda_nms.LAUNCHES[k] - n0[k] for k in n0}})
+        return out
+
+    def counted(name):
+        fn = getattr(cli, name)
+
+        def wrapped(*a, **kw):
+            writes.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    cwd = os.getcwd()
+    os.chdir(cli_root)
+    cli_walls = []
+    try:
+        with patched([(Trainer, "train_step_rendered", counted_step),
+                      (cli.Train, "_train_epoch", spy_epoch),
+                      (cli, "evaluate", spy_eval),
+                      (cli, "save_pth", counted("save_pth")),
+                      (cli, "save_train_state",
+                       counted("save_train_state"))]):
+            for n_epochs, resume in ((1, False), (2, True)):
+                args = Namespace(
+                    epochs=n_epochs, optimizer="SGD", lr=0.01,
+                    batch_size=BATCH, img_size=IMG, weights_path="",
+                    model_name=f"smoke_dp{mesh.dp}", mode="csl",
+                    ver="yolov7", data=os.path.join(cli_root, "data.yaml"),
+                    config=os.path.join(REPO, "configs", "hyp.yaml"),
+                    max_targets=300, yes=True, resume=resume, profile=False,
+                    dtype="f32", device_augment=True, cache_images=False,
+                    device_cache=True, dp=mesh.dp, sp=1, device="cuda")
+                t0 = time.perf_counter()
+                cli.Train(args).train()
+                cli_walls.append(time.perf_counter() - t0)
+    finally:
+        os.chdir(cwd)
+    res.update(writes=writes, epochs=epochs, cli_step_launches=per_step,
+               evals=evals, cli_walls=cli_walls)
+    torch.save(res, os.path.join(out, f"rank{mesh.rank}.pt"))
+
+
+def phase_dp_ranks(tmp, split, names, cfg, world1, label, device, backend):
+    """Phase 17(b) or (c): 2 ranks by ``ryolo_tpu_torch.parallel.launch``
+    (``device``, ``backend``) through :func:`dp_rank`; the first step held
+    against (a)'s on the same global batch, one render launch a rank a
+    step, the train CLI's sharded eval (one ``nms_mask`` and one
+    ``nms_scan`` a rank a batch), checkpoints from rank 0 alone."""
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.parallel import launch
+    from ryolo_tpu_torch.utils.checkpoint import load_pth
+
+    out = os.path.join(tmp, f"dp_{label}")
+    os.makedirs(out)
+    cli_root = os.path.join(tmp, "cli")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch(f"{__name__}:dp_rank", 2,
+           (out, split, cli_root, names, cfg, DP_SHARED_STEPS), device=device,
+           backend=backend)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    what = f"({label}) 2 ranks, {backend}, " + " and ".join(
+        r["device"] for r in ranks)
+    for r in ranks:
+        log("dp", f"{what}: rank {r['rank']}: step walls "
+            f"{[round(w, 1) for w in r['walls']]} ms (the first includes "
+            f"the warm-up), mixup draws {r['mixups']} in "
+            f"{r['extra_slots']} partner slots; train CLI {r['epochs']} "
+            f"epochs in {[round(w, 1) for w in r['cli_walls']]} s, evals "
+            + "; ".join(f"{e['ms']:.0f} ms, nms_mask {e['nms_mask']}, "
+                        f"nms_scan {e['nms_scan']}, metrics "
+                        f"{[round(v, 6) for v in e['metrics']]}"
+                        for e in r["evals"])
+            + f"; checkpoint writes {r['writes']}")
+    a, b = ranks
+    for k, v in a["first"][0].items():
+        check(torch.equal(v, b["first"][0][k]), f"{what}: ranks differ {k}")
+    check(a["first"][1] == b["first"][1], "ranks' loss items differ")
+    if max(a["mixups"][0], b["mixups"][0]) > a["extra_slots"]:
+        log("dp", f"{what}: a mixup draw beyond the partner slots took the "
+            "host-rendered fallback in the first batch")
+    check_step(f"({label}) the first step against (a)'s world-1 step, the "
+               "same global batch", a["first"][0], a["first"][1],
+               world1["first"][0], world1["first"][1], world1["before"])
+    averaged = step_gaps(a["averaged"], world1["first"][0], world1["before"])
+    log("dp", f"({label}) the control, per-rank loss means averaged: BN "
+        f"statistics {averaged[0]:.2e}, update error {averaged[1]:.2e} in the "
+        f"worst tensor, {averaged[2]:.2e} over all parameters (bound "
+        f"{DP_STEP_BOUNDS['total']:.3g}, which it must exceed)")
+    check(averaged[2] > DP_STEP_BOUNDS["total"],
+          f"({label}) averaged per-rank means pass the update bound: "
+          f"{averaged}")
+    for r in ranks:
+        check(r["step_launches"] == [1] * DP_SHARED_STEPS,
+              f"rank {r['rank']} render launches {r['step_launches']}")
+        check(r["epochs"] == [0, 1], f"epochs {r['epochs']}")
+        check(r["cli_step_launches"] == [1] * (2 * CLI_TRAIN // BATCH),
+              f"CLI render launches {r['cli_step_launches']}")
+        check([(e["nms_mask"], e["nms_scan"]) for e in r["evals"]]
+              == [(1, 1)] * 2, f"eval launches {r['evals']}")
+        check(all(math.isfinite(v) for e in r["evals"] for v in e["metrics"]),
+              r["evals"])
+    check([e["metrics"] for e in a["evals"]]
+          == [e["metrics"] for e in b["evals"]], "ranks' metrics differ")
+    check(a["writes"] == ["save_pth", "save_pth", "save_train_state",
+                          "save_pth", "save_train_state"]
+          or a["writes"] == ["save_pth", "save_pth", "save_train_state",
+                             "save_pth", "save_pth", "save_train_state"],
+          f"rank 0 writes {a['writes']}")
+    check(b["writes"] == [], f"rank 1 writes {b['writes']}")
+    weights = os.path.join(cli_root, "weights", "smoke_dp2", "last.pth")
+    sd = load_pth(weights)
+    check(not any(k.startswith("module.") for k in sd), "module. keys")
+    Yolo(NC, cfg["model"], mode="csl", ver="yolov7").load_state_dict(
+        sd, strict=True)
+    log("dp", f"{what}: {wall:.1f} s in all (two processes' start, build "
+        "and bank included); the step walls are two processes sharing "
+        "one card, not a speed of data parallelism" if backend == "gloo"
+        else f"{what}: {wall:.1f} s in all")
+    return dict(render_launches=sum(r["render_launches"] for r in ranks),
+                cli_render_launches=sum(sum(r["cli_step_launches"])
+                                        for r in ranks),
+                nms={k: sum(e[k] for r in ranks for e in r["evals"])
+                     for k in ("nms_mask", "nms_scan")},
+                walls=[w for r in ranks for w in r["walls"][1:]])
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2341,6 +2833,18 @@ def main():
         phase_train_card_vs_cpu_bf16(split, names, cfg)
         cli_bf16 = phase_train_cli(tmp, names, cfg, "bf16")
         phase_train_profile(split, names, cfg)
+        # phase 17: data parallelism (train --dp): (a) one rank of an NCCL
+        # group, (b) 2 gloo ranks sharing the card, (c) 2 NCCL ranks on two
+        # cards where there are two
+        dp_world1 = phase_dp_world1(split, names, cfg, train["results"])
+        dp_runs = {"b": phase_dp_ranks(tmp, split, names, cfg, dp_world1, "b",
+                                       "cuda:0", "gloo")}
+        if torch.cuda.device_count() >= 2:
+            dp_runs["c"] = phase_dp_ranks(tmp, split, names, cfg, dp_world1,
+                                          "c", "cuda", "nccl")
+        else:
+            log("dp", f"(c) not run: {torch.cuda.device_count()} card; it "
+                "runs (b)'s 2 ranks over NCCL, one card each")
 
     # each path's launches, counted from 0 around its own runs
     by_path = {key: {path: sum(r["launches"][key] for r in res.values())
@@ -2357,6 +2861,8 @@ def main():
                             eval_v5=eval_v5["launches"][key],
                             eval_kfiou=eval_kf["launches"][key],
                             eval_int8=eval_int8["launches"][key])
+        for label, run in dp_runs.items():
+            by_path[key][f"eval_dp2_{label}"] = run["nms"][key]
     by_path["render"] = {"train": train["render_launches"],
                          "train_cli": cli["render_launches"],
                          "train_v5": train_v5["render_launches"],
@@ -2364,7 +2870,12 @@ def main():
                          "train_kfiou": train_kf["render_launches"],
                          "train_v5_kfiou": train_v5_kf["render_launches"],
                          "train_bf16": train_bf16["render_launches"],
-                         "train_cli_bf16": cli_bf16["render_launches"]}
+                         "train_cli_bf16": cli_bf16["render_launches"],
+                         "train_dp1": dp_world1["render_launches"]}
+    for label, run in dp_runs.items():
+        by_path["render"][f"train_dp2_{label}"] = run["render_launches"]
+        by_path["render"][f"train_cli_dp2_{label}"] = run[
+            "cli_render_launches"]
     launches = {key: sum(v.values()) for key, v in by_path.items()}
     iou_launches = sum(r["iou_launches"] for res in (main_res, det_v5, det_v4,
                                                      det_kf, det_v5_kf,

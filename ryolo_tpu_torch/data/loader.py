@@ -13,14 +13,16 @@ With ``device_augment`` a batch carries render specs for
 ``images``: B base slots plus E = ceil(0.4·B) mixup-partner slots.  Each
 sample's rng is seeded from ``(seed, epoch, index)``, so batches do not
 depend on the prefetch order.  ``image_uint8`` (un-augmented eval) gives
-uint8 ``images``.  The multi-host ``shard`` option of the JAX loader is
-not ported (it serves ``--dp``, ROADMAP §A15).
+uint8 ``images``.  ``shard=(rank, n)`` (data parallelism, ``--dp n``)
+gives each rank a strided 1/n of the shared shuffle, padded so that every
+rank yields as many batches.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
-from typing import Iterator
+import warnings
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -41,7 +43,14 @@ class DataLoader:
                  shuffle: bool = True, max_targets: int = 300,
                  seed: int = 42, drop_last: bool = False,
                  workers: int = 4, prefetch: int = 2,
+                 shard: Optional[tuple] = None,
                  device_augment: bool = False, device_cache: bool = False):
+        """``shard=(rank, n)``: this rank's strided 1/n of each epoch's
+        shuffled order (the same seed on every rank), the shorter shards
+        wrapping their tail so that all ranks see the same length and step
+        in lockstep.  With ``drop_last`` and a per-rank batch ``b``, rank
+        r's sample j of batch i is ``order[(i·b + j)·n + r]``: global batch
+        i holds the unsharded loader's batch i at ``b·n``."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.csl = csl
@@ -53,6 +62,22 @@ class DataLoader:
         self.prefetch = prefetch
         self.epoch = 0
         self.n_dropped = 0
+        if shard is not None:
+            rank, n_ranks = shard
+            if not 0 <= rank < n_ranks:
+                raise ValueError(f"bad shard {shard}")
+            if n_ranks > 1 and len(dataset) % n_ranks and not (
+                    shuffle or getattr(dataset, "augment", False)):
+                # the wrapped tail is right for shuffled, augmented
+                # training; an eval pass would score those samples twice
+                warnings.warn(
+                    f"DataLoader(shard={shard}): dataset length "
+                    f"{len(dataset)} is not divisible by the {n_ranks} "
+                    "ranks; the wrapped tail samples will be "
+                    "DOUBLE-COUNTED. Sharded loading is intended for "
+                    "training: for eval, pad the dataset or evaluate "
+                    "unsharded.", stacklevel=2)
+        self.shard = shard
         # samples are render specs; a mixup draw beyond the E partner slots
         # falls back to an exact host-rendered identity spec
         self.device_augment = device_augment
@@ -66,8 +91,14 @@ class DataLoader:
             raise ValueError("device_cache requires device_augment")
         self.extra_slots = max(1, -(-batch_size * 2 // 5))  # ceil(0.4·B)
 
-    def __len__(self):
+    def _shard_len(self):
         n = len(self.dataset)
+        if self.shard is None:
+            return n
+        return (n + self.shard[1] - 1) // self.shard[1]  # padded: lockstep
+
+    def __len__(self):
+        n = self._shard_len()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -202,6 +233,13 @@ class DataLoader:
             np.random.default_rng(
                 np.random.SeedSequence([self.seed, self.epoch, 0xB00])
             ).shuffle(order)
+        if self.shard is not None:
+            rank, n_ranks = self.shard
+            per = self._shard_len()
+            # strided split of the shared shuffle, wrapped so that every
+            # rank yields exactly `per` samples
+            order = order[(rank + np.arange(per) * n_ranks) % n]
+            n = per
         if self.drop_last:
             order = order[: (n // self.batch_size) * self.batch_size]
         batches = [order[i:i + self.batch_size]
@@ -243,10 +281,12 @@ DATASETS = {
 
 def load_data(data_dir, class_names, dataset_type, hyp, csl, img_size=608,
               batch_size=4, augment=False, shuffle=True, max_targets=300,
-              drop_last=False, seed=42, workers=4, device_augment=False,
-              cache_images=False, image_uint8=False, device_cache=False):
+              drop_last=False, seed=42, workers=4, shard=None,
+              device_augment=False, cache_images=False, image_uint8=False,
+              device_cache=False):
     """Dataset + loader factory (``lib/load.py:9-21`` of the reference).
 
+    ``shard=(rank, n)``: this rank's part of each epoch (:class:`DataLoader`).
     ``device_augment``: batches are render specs (the host only decodes
     and does label math).  ``device_cache``: the caller uploads
     ``dataset.build_tile_bank()`` once and batches carry bank rows
@@ -266,7 +306,7 @@ def load_data(data_dir, class_names, dataset_type, hyp, csl, img_size=608,
         dataset.image_uint8 = True
     loader = DataLoader(dataset, batch_size, csl=csl, shuffle=shuffle,
                         max_targets=max_targets, drop_last=drop_last,
-                        seed=seed, workers=workers,
+                        seed=seed, workers=workers, shard=shard,
                         device_augment=device_augment,
                         device_cache=device_cache)
     return dataset, loader

@@ -15,9 +15,16 @@ image (the C++ matcher drops the GIL), with at most three batches in
 flight.  The loss items stay on the device and are read
 once, after the loop.
 
+With a ``mesh`` (data parallelism, JAX ``evaluate(mesh=...)`` :182-223)
+each rank runs its rows of every padded batch, so the batch size must
+divide by the mesh's size, as in JAX; the val loss is the global batch's
+(the loss function's reducer), the per-image statistics are gathered to
+rank 0 in image order, and rank 0 computes the metrics once and
+broadcasts them, so that every rank takes the same ``best.pth`` decision.
+
 The JAX package's jit step cache (``_STEP_CACHE``, ``clear_step_cache``)
 has no counterpart: nothing is traced here, so nothing is kept between
-calls.  ``mesh`` comes with data parallelism (ROADMAP §A15).
+calls.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ryolo_tpu_torch.data.loader import load_data
 from ryolo_tpu_torch.eval.metrics import (IOU_THRESHOLDS,
@@ -37,6 +45,7 @@ from ryolo_tpu_torch.eval.postprocess import (MAX_DET, MAX_NMS,
                                               post_process_kfiou_defer)
 from ryolo_tpu_torch.nn.yolo import STRIDES
 from ryolo_tpu_torch.ops.render import to_device
+from ryolo_tpu_torch.parallel.mesh import shard_batch
 from ryolo_tpu_torch.utils.logger import logger
 
 PIPELINE = 3  # batches in flight, and matcher threads
@@ -166,12 +175,17 @@ def evaluate(
 ) -> Tuple[float, float, float, float, Dict[str, float]]:
     """Run the mAP protocol on ``data['val']`` with ``model`` (deploy-fused,
     either head; its weights take the place of the JAX ``variables``
-    argument) on ``device`` (default: the model's).  ``batches`` (a list of the loader's
-    batch dicts, host arrays or tensors) skips the loader.  Returns ``(mp,
-    mr, map50, map50_95, mean loss items)``."""
+    argument) on ``device`` (default: the model's).  ``batches`` (a list of
+    the loader's batch dicts, host arrays or tensors) skips the loader.
+    ``mesh`` (a :class:`~ryolo_tpu_torch.parallel.mesh.Mesh`, every rank
+    calling): this rank's share of each batch on the mesh's device (module
+    docstring).  Returns ``(mp, mr, map50, map50_95, mean loss items)``."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh: data-parallel eval comes with ROADMAP §A15")
+        if batch_size % mesh.dp:
+            raise ValueError(f"eval batch_size {batch_size} not divisible "
+                             f"by mesh size {mesh.dp}")
+        device = mesh.device
+    main = mesh is None or mesh.is_main
     device = torch.device(device if device is not None
                           else next(model.parameters()).device)
     model = model.to(device)
@@ -191,7 +205,7 @@ def evaluate(
     loss_acc = []
 
     iterator = loader
-    if progress:
+    if progress and main:
         try:
             import tqdm
 
@@ -213,6 +227,10 @@ def evaluate(
             n_batches += 1
             arrays = _pad_batch({k: v for k, v in batch.items()
                                  if k != "paths"}, batch_size)
+            if mesh is not None:  # this rank's rows, and its real images
+                arrays = shard_batch(arrays, mesh)
+                b = batch_size // mesh.dp
+                real_b = min(max(real_b - mesh.rank * b, 0), b)
             dets, valid, items = eval_step(
                 model, upload(arrays, device, div255), loss_fn, conf_thres,
                 iou_thres, max_nms, max_det)
@@ -228,7 +246,16 @@ def evaluate(
                                           mask, real_b))
             if len(futures) > PIPELINE:  # bound the batches in flight
                 futures[-PIPELINE - 1].result()
-        stats = [s for f in futures for s in f.result()]
+        per_batch = [f.result() for f in futures]
+    if mesh is not None:
+        # every rank's statistics to rank 0, batch by batch in rank order:
+        # the images' order
+        ranks = [None] * mesh.dp if main else None
+        dist.gather_object(per_batch, ranks, dst=0)
+        if main:
+            per_batch = [[s for r in ranks for s in r[i]]
+                         for i in range(n_batches)]
+    stats = [s for batch_stats in per_batch for s in batch_stats]
 
     total_loss_items: Dict[str, float] = {}
     if loss_acc and loss_acc[0]:
@@ -238,9 +265,20 @@ def evaluate(
         for i, k in enumerate(keys):
             total_loss_items[k] = sum(v[i] for v in vals) / n_batches
 
+    metrics = [None]
+    if main:
+        metrics = [_metrics(stats, data["names"], seen)]
+    if mesh is not None:
+        dist.broadcast_object_list(metrics, src=0)
+    return (*metrics[0], total_loss_items)
+
+
+def _metrics(stats, names, seen):
+    """``(mp, mr, map50, map5095)`` of the per-image statistics, and their
+    table in the log."""
     stats_cat = [np.concatenate(x, 0) for x in zip(*stats)] if stats else []
     nt, p, r, ap50, ap, f1, ap_class, mp, mr, map50, map5095 = (
-        calculate_eval_stats(stats_cat, len(data["names"])))
+        calculate_eval_stats(stats_cat, len(names)))
 
     logger.info(("%20s" + "%12s" * 6) % ("Class", "Images", "Labels",
                                          "Precision", "Recall", "mAP@.5",
@@ -248,6 +286,5 @@ def evaluate(
     pf = "%20s" + "%12i" * 2 + "%12.3g" * 4
     logger.info(pf % ("all", seen, nt.sum(), mp, mr, map50, map5095))
     for i, c in enumerate(ap_class):
-        logger.info(pf % (data["names"][c], seen, nt[c], p[i], r[i], ap50[i],
-                          ap[i]))
-    return mp, mr, map50, map5095, total_loss_items
+        logger.info(pf % (names[c], seen, nt[c], p[i], r[i], ap50[i], ap[i]))
+    return mp, mr, map50, map5095

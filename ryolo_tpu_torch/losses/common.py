@@ -5,6 +5,13 @@ axis-aligned CIoU (counterpart of ``ryolo_tpu/losses/common.py``:
 ``masked_mean`` :145).  Every reduction over a padded candidate set is a
 masked mean, so fixed shapes give the reference's dynamic-shape
 ``.mean()``.
+
+Data parallelism (``--dp N``): the JAX trainer takes each mean over the
+global batch.  A rank's loss is then its share of the global loss: a
+masked mean divides by the ``count`` of unmasked elements summed over the
+ranks (:func:`level_counts`), and an unmasked mean over equal shards is
+the local mean over the number of ``shards``.  The shares sum to the
+global loss, and the ranks' gradients to its gradient.
 """
 
 from __future__ import annotations
@@ -29,22 +36,50 @@ def focal_modulation(logits, targets, gamma: float, alpha: float = 0.25):
     return alpha_factor * (1.0 - p_t) ** gamma
 
 
-def masked_mean(x, mask):
-    """Mean of ``x`` over the elements where ``mask`` holds (0 if none)."""
+def masked_mean(x, mask, count=None):
+    """Mean of ``x`` over the elements where ``mask`` holds (0 if none);
+    ``count``: the number of those elements to divide by (default: this
+    ``mask``'s)."""
     m = torch.broadcast_to(mask, x.shape).to(x.dtype)
-    return torch.sum(x * m) / torch.clamp_min(torch.sum(m), 1.0)
+    if count is None:
+        count = torch.sum(m)
+    return torch.sum(x * m) / torch.clamp_min(count, 1.0)
 
 
 def bce_loss(logits, targets, pos_weight=1.0, fl_gamma: float = 0.0,
-             mask=None):
-    """Mean BCE over all elements, or over the elements ``mask`` selects,
-    with focal modulation when ``fl_gamma > 0``."""
+             mask=None, count=None, shards: int = 1):
+    """Mean BCE over all elements (over ``shards`` equal shards: this
+    shard's mean / ``shards``), or over the elements ``mask`` selects
+    (``count``: :func:`masked_mean`'s), with focal modulation when
+    ``fl_gamma > 0``."""
     loss = bce_with_logits(logits, targets, pos_weight)
     if fl_gamma > 0:
         loss = loss * focal_modulation(logits, targets, fl_gamma)
     if mask is None:
-        return torch.mean(loss)
-    return masked_mean(loss, mask)
+        return torch.mean(loss) / shards
+    return masked_mean(loss, mask, count)
+
+
+def level_counts(valid_masks, reducer=None):
+    """``(counts, shards)``: the number of valid candidates of each level's
+    ``(B, K)`` mask, float32, summed over the ranks of ``reducer`` (a
+    :class:`~ryolo_tpu_torch.parallel.mesh.Mesh`; no gradient flows through
+    them), and the number of ranks (1 without a reducer)."""
+    counts = torch.stack([m.sum() for m in valid_masks]).float()
+    if reducer is None:
+        return counts, 1
+    return reducer.sum(counts), reducer.dp
+
+
+def reduce_items(items: dict, reducer=None) -> dict:
+    """Loss items (each rank's share) summed over the ranks, detached."""
+    if reducer is None:
+        return items
+    ref = next(v for v in items.values() if isinstance(v, torch.Tensor))
+    sums = reducer.sum(torch.stack([
+        torch.as_tensor(v, dtype=torch.float32, device=ref.device).detach()
+        for v in items.values()]))
+    return dict(zip(items, sums.unbind()))
 
 
 def bbox_ciou(pred_boxes, target_boxes):
@@ -87,12 +122,14 @@ def _sigma_inverse_quadform(diff, wh, r):
     return dx ** 2 / a + dy ** 2 / b
 
 
-def kf_loss(pred, target, fun: str = "exp", alpha: float = 3.0, mask=None):
+def kf_loss(pred, target, fun: str = "exp", alpha: float = 3.0, mask=None,
+            count=None):
     """Kalman-filter IoU loss of ``(..., 5)`` ``(x, y, w, h, theta)`` boxes
     (``lib/loss.py:100-150`` of the reference, the Gaussians of
     ``lib/general.py:107-133`` in closed form).  Returns ``(loss, kfiou)``:
-    the loss's mean over the elements ``mask`` selects (all without one)
-    and the elementwise KFIoU.  The terms keep the reference's order: with
+    the loss's mean over the elements ``mask`` selects (all without one;
+    ``count``: :func:`masked_mean`'s) and the elementwise KFIoU.  The terms
+    keep the reference's order: with
     sizes clipped to ``[1e-4, 1e4]`` the size ratios reach 1e24 in
     float32."""
     wh_p = torch.clamp(pred[..., 2:4], 1e-4, 1e4)
@@ -125,4 +162,4 @@ def kf_loss(pred, target, fun: str = "exp", alpha: float = 3.0, mask=None):
     loss = torch.clamp_min(xy_loss + k, 0)
     if mask is None:
         return torch.mean(loss), kfiou
-    return masked_mean(loss, mask), kfiou
+    return masked_mean(loss, mask, count), kfiou

@@ -17,13 +17,25 @@ JAX ``train.py`` picks them, :40-52 and :119-126).  ``--dtype bf16``
 trains with a bf16 forward and float32 parameters, gradients, optimizer,
 BatchNorm statistics and loss (JAX :96-103; :class:`Trainer`), and its
 per-epoch eval fuses in bf16, as the JAX clone of the bf16 model does
-(:304); ``.pth``, ``last.state`` and ``--resume`` stay float32.  Not
-ported yet, and raising: ``--dp``/``--sp`` above 1 (ROADMAP §A15).
+(:304); ``.pth``, ``last.state`` and ``--resume`` stay float32.
+
+``--dp N`` trains data-parallel over N ranks at the global batch
+``--batch_size`` (which N must divide), computing what one process
+computes at that batch (:mod:`ryolo_tpu_torch.parallel`): launched as one
+command it spawns the N ranks itself; under ``torchrun --nproc_per_node N``
+each rank joins from the environment.  Rank r runs on ``cuda:LOCAL_RANK``
+(NCCL), or on the CPU with ``--device cpu`` (gloo); it loads its strided
+share of each epoch at B/N a batch, keeps the whole train split's tile
+bank, renders its share (one launch a step on a card) and runs its rows
+of each padded eval batch.  Rank 0 alone logs, writes TensorBoard,
+``.pth`` and ``last.state``; every rank reads ``--resume``.  ``--sp`` above
+1 (the image height split across devices) raises: ROADMAP §A18.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import shutil
 import sys
@@ -35,6 +47,8 @@ from ryolo_tpu_torch.data.loader import load_data
 from ryolo_tpu_torch.eval.evaluator import evaluate
 from ryolo_tpu_torch.nn import Yolo, fuse_for_inference
 from ryolo_tpu_torch.ops.render import to_device
+from ryolo_tpu_torch.parallel import (convert_sync_bn, current_mesh, launch,
+                                     make_mesh, replicate)
 from ryolo_tpu_torch.train.trainer import (LOSS_FNS, Trainer, fitness,
                                            one_cycle, weights_init_normal)
 from ryolo_tpu_torch.utils.checkpoint import (import_state_dict,
@@ -84,15 +98,45 @@ class Train:
 
     def _check_options(self):
         args = self.args
-        if args.dp > 1 or args.sp > 1:
+        if args.sp > 1:
             raise NotImplementedError(
-                "--dp/--sp above 1: parallel training comes with ROADMAP "
-                "§A15")
+                "--sp above 1: spatial sharding needs a conv halo exchange, "
+                "ROADMAP §A18 (the sp part of §A15)")
+        if args.dp > 1:
+            if torch.device(args.device).index is not None:
+                raise ValueError(
+                    f"--device {args.device} with --dp {args.dp}: rank r "
+                    "runs on cuda:LOCAL_RANK, pass --device cuda")
+            if args.batch_size % args.dp:
+                logger.error("--dp must divide --batch_size")
+                sys.exit(1)
+
+    def _mesh(self):
+        """This rank's mesh under ``--dp`` above 1 (joined by the launcher,
+        or from ``torchrun``'s environment), else ``None``."""
+        args = self.args
+        if args.dp == 1:
+            return None
+        mesh = current_mesh() or make_mesh(args.dp, device=args.device)
+        if mesh.dp != args.dp:
+            raise ValueError(f"--dp {args.dp} in a group of {mesh.dp} ranks")
+        return mesh
 
     def train(self):
         args = self.args
         self._check_options()
-        device = resolve_device(args.device)
+        if (args.dp > 1 and current_mesh() is None
+                and "RANK" not in os.environ):
+            # one command trains as JAX's does: spawn the ranks here
+            launch("ryolo_tpu_torch.train.__main__:_train_rank",
+                   args.dp, (args,), device=args.device)
+            return
+        mesh = self._mesh()
+        main = mesh is None or mesh.is_main
+        device = mesh.device if mesh is not None else resolve_device(
+            args.device)
+        if not main:
+            logger.setLevel(logging.WARNING)
         data = load_yaml(args.data)
         config = load_yaml(args.config)
         model_cfg, hyp_cfg = config["model"], config["hyp"]
@@ -102,10 +146,14 @@ class Train:
             if not os.path.isdir(self.model_path):
                 logger.error(f"--resume: no run directory {self.model_path}")
                 sys.exit(1)
-        else:
+        elif main:
             self.check_model_path()
-        save_opts(self.model_path, args, config)
-        tb = Logger(os.path.join(self.model_path, "logs"))
+        tb = None
+        if main:
+            save_opts(self.model_path, args, config)
+            tb = Logger(os.path.join(self.model_path, "logs"))
+        if mesh is not None:
+            mesh.barrier()
 
         with torch.random.fork_rng():
             # what weights_init_normal leaves (the implicit priors) is drawn
@@ -119,23 +167,31 @@ class Train:
                                   max_entries=PRETRAINED_ENTRIES)
             logger.info(f"Loaded {n} tensors")
         model.to(device)
+        if mesh is not None:
+            replicate(convert_sync_bn(model), mesh)
         set_float32_math(device)
         if device.type == "cuda":
             torch.backends.cudnn.benchmark = True  # fixed shapes
-        loss_fn = LOSS_FNS[args.mode](model.anchors, nc, hyp_cfg, device)
+        loss_fn = LOSS_FNS[args.mode](model.anchors, nc, hyp_cfg, device,
+                                      reducer=mesh)
         csl = args.mode == "csl"
 
+        # under --dp each rank loads its strided share at B / dp a batch
+        dp = 1 if mesh is None else mesh.dp
         train_dataset, train_loader = load_data(
             data["train"], data["names"], data["type"], hyp_cfg, csl,
-            img_size=args.img_size, batch_size=args.batch_size, augment=True,
-            shuffle=True, max_targets=args.max_targets, drop_last=True,
+            img_size=args.img_size, batch_size=args.batch_size // dp,
+            augment=True, shuffle=True, max_targets=args.max_targets,
+            drop_last=True,
+            shard=None if mesh is None else (mesh.rank, mesh.dp),
             device_augment=args.device_augment,
             cache_images=args.cache_images, device_cache=args.device_cache)
         iters_per_epoch = len(train_loader)
 
         tile_bank = None
         if args.device_cache:
-            # the decoded train split on the device once: batches then carry
+            # the decoded train split on the device once (all of it on each
+            # rank: spec rows index the whole split): batches then carry
             # (B, T) bank rows instead of pixels
             bank_np = train_dataset.build_tile_bank()
             logger.info(f"Device tile bank: {bank_np.shape[0]} images, "
@@ -144,7 +200,8 @@ class Train:
             del bank_np
 
         dtype = DTYPES[args.dtype]
-        trainer = Trainer(model, loss_fn, args.optimizer, args.lr, dtype)
+        trainer = Trainer(model, loss_fn, args.optimizer, args.lr, dtype,
+                          mesh)
 
         start_epoch = 0
         best_fitness = -1.0
@@ -154,6 +211,8 @@ class Train:
                 logger.error(f"--resume: {resume_path} not found")
                 sys.exit(1)
             meta = load_train_state(trainer, resume_path)
+            if not main:  # rank 0's share holds the pending gradient sum
+                trainer.drop_pending_grads()
             start_epoch = meta["epoch"] + 1
             best_fitness = meta.get("best_fitness", -1.0)
             logger.info(f"Resumed from {resume_path} at epoch {start_epoch}")
@@ -170,42 +229,64 @@ class Train:
             train_loader.set_epoch(epoch)
             lr_now, total_train_loss = self._train_epoch(
                 trainer, train_loader, tile_bank, epoch, iters_per_epoch, nw,
-                accumulate, args.lr * lf(epoch), device, epoch == start_epoch)
+                accumulate, args.lr * lf(epoch), device, epoch == start_epoch,
+                main)
 
             # per-epoch eval on the deploy-FUSED graph in the training
-            # dtype, twice the batch
+            # dtype, twice the batch (under --dp each rank its rows)
             mp, mr, map50, map5095, total_val_loss = evaluate(
                 fuse_for_inference(model, dtype=dtype), loss_fn, data,
                 hyp_cfg, csl,
                 args.img_size, args.batch_size * 2, conf_thres=0.001,
-                iou_thres=0.65, max_targets=args.max_targets, device=device)
-
-            tb_log = {f"train/{k}": v for k, v in total_train_loss.items()}
-            tb_log.update({f"val/{k}": v for k, v in total_val_loss.items()})
-            tb_log.update({
-                "metrics/mean recall": mr,
-                "metrics/mean precision": mp,
-                "metrics/mAP@.5": map50,
-                "metrics/mAP@.5:.95": map5095,
-                "lr": lr_now,
-            })
-            tb.list_of_scalars_summary(tb_log, epoch)
-
+                iou_thres=0.65, max_targets=args.max_targets, device=device,
+                progress=main, mesh=mesh)
+            # every rank: the same metrics, so the same best-model decision
             fit = fitness(np.array([mp, mr, map50, map5095]))
-            if fit > best_fitness:
-                best_fitness = fit
-                save_pth(model, os.path.join(self.model_path, "best.pth"))
-                logger.info("Current best model is saved!")
-            save_pth(model, os.path.join(self.model_path, "last.pth"))
-            save_train_state(
-                trainer, {"epoch": epoch, "best_fitness": float(best_fitness)},
-                resume_path)
+            trainer.gather_pending_grads()
+            if main:
+                best_fitness = self._save_epoch(
+                    model, trainer, tb, epoch, fit, best_fitness,
+                    total_train_loss, total_val_loss,
+                    (mp, mr, map50, map5095), lr_now)
+            else:
+                best_fitness = max(best_fitness, fit)
+            if mesh is not None:
+                mesh.barrier()
 
-        tb.close()
+        if tb is not None:
+            tb.close()
         logger.info("Done!")
 
+    def _save_epoch(self, model, trainer, tb, epoch, fit, best_fitness,
+                    total_train_loss, total_val_loss, metrics, lr_now):
+        """Rank 0's end of an epoch: TensorBoard, ``best.pth`` when the
+        fitness improves, ``last.pth`` and ``last.state``; returns the best
+        fitness."""
+        mp, mr, map50, map5095 = metrics
+        tb_log = {f"train/{k}": v for k, v in total_train_loss.items()}
+        tb_log.update({f"val/{k}": v for k, v in total_val_loss.items()})
+        tb_log.update({
+            "metrics/mean recall": mr,
+            "metrics/mean precision": mp,
+            "metrics/mAP@.5": map50,
+            "metrics/mAP@.5:.95": map5095,
+            "lr": lr_now,
+        })
+        tb.list_of_scalars_summary(tb_log, epoch)
+
+        if fit > best_fitness:
+            best_fitness = fit
+            save_pth(model, os.path.join(self.model_path, "best.pth"))
+            logger.info("Current best model is saved!")
+        save_pth(model, os.path.join(self.model_path, "last.pth"))
+        save_train_state(
+            trainer, {"epoch": epoch, "best_fitness": float(best_fitness)},
+            os.path.join(self.model_path, "last.state"))
+        return best_fitness
+
     def _train_epoch(self, trainer, loader, tile_bank, epoch, iters_per_epoch,
-                     nw, accumulate, lr_epoch, device, first_epoch):
+                     nw, accumulate, lr_epoch, device, first_epoch,
+                     main=True):
         """One epoch of steps: ``(the last step's learning rate, the mean
         loss items)``."""
         args = self.args
@@ -214,7 +295,7 @@ class Train:
         try:
             import tqdm
 
-            pbar = tqdm.tqdm(loader, total=iters_per_epoch)
+            pbar = tqdm.tqdm(loader, total=iters_per_epoch, disable=not main)
         except ImportError:
             pass
 
@@ -242,16 +323,17 @@ class Train:
                 acc_now, lr_now = accumulate, lr_epoch
 
             def run_step():
-                if args.device_augment:
+                if args.device_augment:  # this rank's rows of the batch
                     return trainer.train_step_rendered(
-                        batch, tile_bank, lr_now, acc_now, args.batch_size)
+                        batch, tile_bank, lr_now, acc_now,
+                        len(batch["paths"]))
                 dev_batch = {k: to_device(v, device)
                              for k, v in batch.items() if k != "paths"}
                 dev_batch["images"] = dev_batch["images"].permute(
                     0, 3, 1, 2).contiguous()
                 return trainer.train_step(dev_batch, lr_now, acc_now)
 
-            if args.profile and first_epoch and batch_i == 1:
+            if args.profile and first_epoch and batch_i == 1 and main:
                 _, items = self._profiled(run_step, device)
             else:
                 _, items = run_step()
@@ -318,12 +400,18 @@ def build_parser() -> argparse.ArgumentParser:
                              "split on the device so batches ship bank "
                              "rows, no pixels")
     parser.add_argument("--dp", type=int, default=1,
-                        help="data-parallel size (only 1 is ported)")
+                        help="data-parallel ranks (processes; --batch_size "
+                             "is the global batch)")
     parser.add_argument("--sp", type=int, default=1,
                         help="spatial sharding factor (only 1 is ported)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     return parser
+
+
+def _train_rank(args):
+    """One rank of a ``--dp`` run spawned by :meth:`Train.train`."""
+    Train(args).train()
 
 
 if __name__ == "__main__":

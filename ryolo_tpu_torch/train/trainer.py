@@ -23,6 +23,16 @@ bf16 activations); parameters, gradients, the optimizer and the
 BatchNorm running statistics stay float32, and the loss, outside the
 autocast region, reads the bf16 head maps as float32.  bf16 needs no loss
 scaling.
+
+Data parallelism (``--dp N``, JAX ``make_mesh(N)``): each rank steps on its
+shard of the global batch with a model whose BatchNorms are synced
+(:func:`ryolo_tpu_torch.parallel.convert_sync_bn`) and a loss whose means
+divide by global counts (the loss functions' ``reducer``), so its loss is
+its share of the global loss.  :class:`Trainer` with a ``mesh`` sums the
+ranks' gradients in one all-reduce right before each update, and not on
+the micro-batches that only accumulate (the sum is linear), so the update
+is JAX's.  No wrapper (``DistributedDataParallel``) goes around the model:
+its state-dict names stay the reference's.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from torch import nn
 
 from ryolo_tpu_torch.data.device_augment import render_batch, to_device
 from ryolo_tpu_torch.losses import csl_loss, kfiou_loss
+from ryolo_tpu_torch.parallel.mesh import all_reduce_grads
 
 
 def one_cycle(y1: float = 0.0, y2: float = 1.0, steps: int = 100):
@@ -82,20 +93,21 @@ def _on_device(anchors: Sequence[np.ndarray], device):
 
 
 def csl_loss_fn(anchors: Sequence[np.ndarray], nc: int, hyp: dict,
-                device) -> Callable:
+                device, reducer=None) -> Callable:
     """``(outputs, batch) -> (loss, items)`` for the CSL head, with the
-    per-level anchors placed on ``device`` once."""
+    per-level anchors placed on ``device`` once; ``reducer``: the mesh
+    whose global batch the means run over (:func:`csl_loss`)."""
     anc = _on_device(anchors, device)
 
     def loss_fn(outputs, batch):
         return csl_loss(outputs, batch["tgt"], batch["tgt_csl"],
-                        batch["tgt_mask"], anc, nc, hyp)
+                        batch["tgt_mask"], anc, nc, hyp, reducer)
 
     return loss_fn
 
 
 def kfiou_loss_fn(anchors: Sequence[np.ndarray], nc: int, hyp: dict,
-                  device) -> Callable:
+                  device, reducer=None) -> Callable:
     """``(outputs, batch) -> (loss, items)`` for the KFIoU head (rotated
     anchors ``(na, 3)`` per level, placed on ``device`` once); the batch
     needs no ``tgt_csl``."""
@@ -103,7 +115,7 @@ def kfiou_loss_fn(anchors: Sequence[np.ndarray], nc: int, hyp: dict,
 
     def loss_fn(outputs, batch):
         return kfiou_loss(outputs, batch["tgt"], batch["tgt_mask"], anc, nc,
-                          hyp)
+                          hyp, reducer)
 
     return loss_fn
 
@@ -117,8 +129,9 @@ class Trainer:
 
     def __init__(self, model: nn.Module, loss_fn: Callable,
                  optimizer_name: str, base_lr: float,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         self.model = model
+        self.mesh = mesh  # the ranks whose gradients each update sums
         self.loss_fn = loss_fn  # (outputs, batch) -> (loss, items)
         self.optimizer = make_optimizer(optimizer_name, model.parameters(),
                                         base_lr)
@@ -134,8 +147,8 @@ class Trainer:
         ``accumulate`` micro-batches are in (the forward in ``dtype``, the
         loss in float32).  ``batch``: ``images`` (B, 3, S, S) float32 and
         the targets, on the model's device.  Returns
-        ``(loss, items)`` as device tensors; nothing here waits for the
-        device."""
+        ``(loss, items)`` as device tensors, global under a mesh; nothing
+        here waits for the device (NCCL's collectives included)."""
         self.model.train()
         images = batch["images"]
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
@@ -145,12 +158,33 @@ class Trainer:
         loss.backward()
         self.accum_count += 1
         if self.accum_count >= accumulate:
+            if self.mesh is not None:
+                all_reduce_grads(self.model.parameters(), self.mesh)
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self.accum_count = 0
+        loss = items.get("total_loss", loss)
         return loss.detach(), {k: v.detach() for k, v in items.items()}
+
+    def gather_pending_grads(self):
+        """Under a mesh, with micro-batches summed but not yet applied: the
+        ranks' gradient sums all-reduced into rank 0, zeros elsewhere, so
+        that rank 0's training state (what ``last.state`` saves) holds the
+        global sum and the next update's all-reduce still adds it once."""
+        if self.mesh is None or self.accum_count == 0:
+            return
+        all_reduce_grads(self.model.parameters(), self.mesh)
+        if not self.mesh.is_main:
+            self.drop_pending_grads()
+
+    def drop_pending_grads(self):
+        """Zero the summed gradients on this rank (a rank other than 0 after
+        loading rank 0's ``last.state``: :meth:`gather_pending_grads`)."""
+        for p in self.model.parameters():
+            if p.grad is not None:
+                p.grad.zero_()
 
     def train_step_rendered(self, spec_batch, bank, lr: float,
                             accumulate: int, n_out: int,

@@ -383,5 +383,10 @@ def test_cuda_without_card_raises(setup, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Test(_test_args(weights, root / "data.yaml", device="cuda")).run()
     model, loss_fn = _port_model_and_loss(variables)
-    with pytest.raises(NotImplementedError, match="A15"):
-        evaluate(model, loss_fn, data, HYP, True, mesh=object(), **KW)
+    # a mesh whose size does not divide the batch raises, as JAX's does
+    # (the sharded eval itself: tests/test_torch_parallel.py)
+    from ryolo_tpu_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="not divisible"):
+        evaluate(model, loss_fn, data, HYP, True,
+                 mesh=Mesh(3, 0, torch.device("cpu")), **KW)

@@ -426,13 +426,17 @@ def test_train_state_keeps_pending_accumulation(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(dp=2), "A15"), (dict(sp=2), "A15")])
+    (dict(dp=2, sp=2), "A15"), (dict(sp=2), "A15")])
 def test_unported_options_raise(synth, tmp_path, monkeypatch, change, match):
+    """``--sp`` above 1 (with or without ``--dp``) raises, naming ROADMAP
+    §A18, the ``sp`` part of §A15 (``--dp`` is ported:
+    tests/test_torch_parallel_cli.py)."""
     from ryolo_tpu_torch.train.__main__ import Train, build_parser
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as err:
         Train(_args(synth, **change)).train()
+    assert "§A18" in str(err.value)
     assert build_parser().parse_args([]).device == "cuda"
 
 
