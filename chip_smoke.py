@@ -96,10 +96,27 @@ Phases, each reported on its own lines:
    ``nms_scan`` a rank) and ``--resume`` to a second, checkpoints from rank
    0 alone; (c) the same over NCCL on two cards, only where there are two.
    A failing rank fails the script.
+18. spatial sharding (``train --dp N --sp S``,
+   ``ryolo_tpu_torch.parallel.spatial``): (a) two ranks by ``launch``
+   sharing ``cuda:0`` over gloo under ``make_mesh(2, sp=2)``, one group of
+   phase 6's global batch of 8 split by height (rows 416 + 384), for
+   v7-CSL and v5-CSL: the gathered training-mode head maps before any
+   update against one process's forward (with the synced and with cuDNN's
+   BatchNorm) within 5x that forward's own envelope (the batch reversed,
+   channels-last), and against the halo rows zeroed, which must fail; 3
+   steps (one render a rank a step, every halo collective counted, no host
+   sync outside the collectives after step 1, each rank's peak memory
+   against phase 6's and 11's), the first held against the plain
+   ``Trainer``'s first step on the same batch, and a step with the loss
+   counts summed over all ranks, which must fail; (b) then
+   ``Train(args).train()`` with ``--dp 2 --sp 2`` in each rank, an epoch
+   and ``--resume``, its eval one ``nms_mask`` and one ``nms_scan`` a rank
+   a batch; (c) ``--dp 4 --sp 2`` over NCCL, only where there are four
+   cards.
 
 Phases 11-14 and 16 run beside the YOLOv7-CSL phases that share their data:
 their detect and eval after phase 9, their training (and phase 15) after
-phase 10; phase 17 runs last.  The eval
+phase 10; phases 17 and 18 run last.  The eval
 runs of v7-CSL, v5-CSL and v7-KFIoU also count, on their second batch,
 the pairs of the NMS mask that the far reject leaves, for ``nms_mask``'s
 bound at the path's own shape.
@@ -2165,16 +2182,9 @@ def phase_eval_card_vs_cpu(tmp, names, model, cfg):
         "(rtol 1e-4)")
 
 
-def phase_train_cli(tmp, names, cfg, dtype="f32"):
-    """The ``train`` CLI in-process: 1 epoch at 800 px, batch 8, with the
-    tap renderer and the tile bank, then ``--resume`` to 2 epochs, with
-    ``--dtype`` ``dtype`` (bf16: the per-epoch eval fused in bf16)."""
-    import ryolo_tpu_torch.train.__main__ as cli
-    from ryolo_tpu_torch.nn import Yolo
-    from ryolo_tpu_torch.ops import cuda_render
-    from ryolo_tpu_torch.train import Trainer
-    from ryolo_tpu_torch.utils.checkpoint import load_pth
-
+def cli_data(tmp, names):
+    """The train CLI's 16-image train and 8-image val DOTA splits under
+    ``<tmp>/cli`` (written once) and their ``data.yaml``."""
     root = os.path.join(tmp, "cli")
     if not os.path.isdir(root):
         write_dota_split(os.path.join(root, "train"), names,
@@ -2185,6 +2195,20 @@ def phase_train_cli(tmp, names, cfg, dtype="f32"):
     with open(data, "w") as f:
         json.dump({"type": "DOTA", "train": os.path.join(root, "train"),
                    "val": os.path.join(root, "val"), "names": names}, f)
+    return root, data
+
+
+def phase_train_cli(tmp, names, cfg, dtype="f32"):
+    """The ``train`` CLI in-process: 1 epoch at 800 px, batch 8, with the
+    tap renderer and the tile bank, then ``--resume`` to 2 epochs, with
+    ``--dtype`` ``dtype`` (bf16: the per-epoch eval fused in bf16)."""
+    import ryolo_tpu_torch.train.__main__ as cli
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.ops import cuda_render
+    from ryolo_tpu_torch.train import Trainer
+    from ryolo_tpu_torch.utils.checkpoint import load_pth
+
+    root, data = cli_data(tmp, names)
     spans = Spans()
     epochs, per_step, metrics, fused = [], [], [], []
     step = Trainer.train_step_rendered
@@ -2294,12 +2318,18 @@ DP_CHECK_LR = 0.01
 # a --dp step against another on the same global batch: loss items (rtol),
 # BN statistics (of the tensor's largest entry), the update's L2 error in
 # the worst tensor and over all parameters.  The items and statistics agree
-# to ~1e-6 (H100 80GB HBM3, 700 W); the update only to ~1e-2: cuDNN picks
-# other convolution algorithms at 4 images than at 8 (and with
-# ``cudnn.benchmark`` on than off), and the backward through random-weight
-# BatchNorms amplifies their rounding (phase 17(a) measures that envelope
-# on the plain Trainer).  Ranks averaging per-rank means instead miss the
-# update by ~0.5 (tests/test_torch_parallel_step.py).
+# to ~1e-6 (H100 80GB HBM3, 700 W); the update only to ~1e-2, and that is
+# float32 summation order, not the ranks: scripts/torch_dp_grad_probe.py
+# (same card) finds the plain one-process model's gradient on the same 8
+# images in the two ranks' order 1.29e-2 from its gradient in the loader's
+# order (run twice in one order: 2.9e-6), one rank of a world-1 group 5.0e-3
+# from itself in the two orders, and the two gloo ranks 1.43e-2 from that
+# world-1 rank in their order; in every pair the first parameter of the
+# backward (the last head's implicit prior) already parts by ~5e-5 (the
+# loss's sums in another order) and the gap grows past 1e-2 at the same
+# depth, through the backward of the random-weight train-mode BatchNorms.
+# So the bound stays 0.03 (ROADMAP §C1).  Ranks averaging per-rank means
+# instead miss the update by ~0.5 (tests/test_torch_parallel_step.py).
 DP_STEP_BOUNDS = {"items": 1e-5, "stats": 1e-4, "tensor": 0.05,
                   "total": 0.03}
 
@@ -2322,24 +2352,25 @@ def dp_loader(split, names, cfg, shard, batch, dev):
     return loader, torch.from_numpy(dataset.build_tile_bank()).to(dev)
 
 
-def seeded_model(cfg, dev):
-    """Phase 6's v7-CSL with the implicit priors (which
-    ``weights_init_normal`` leaves) drawn from a fixed seed too, so that
-    every process builds the same weights."""
+def seeded_model(cfg, dev, ver="yolov7"):
+    """Phase 6's v7-CSL (or phase 11's ``ver``) with the implicit priors
+    (which ``weights_init_normal`` leaves) drawn from a fixed seed too, so
+    that every process builds the same weights."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED)
-        return train_model(cfg, dev)
+        return train_model(cfg, dev, ver)
 
 
-def dp_trainer(cfg, mesh, dev):
+def dp_trainer(cfg, mesh, dev, ver="yolov7", reducer=None):
     """Phase 6's model and optimizer under ``mesh``: synced BatchNorms,
-    global loss means, summed gradients."""
+    global loss means (over ``reducer``, default the mesh's groups),
+    summed gradients; under ``sp`` the Trainer splits the rows."""
     from ryolo_tpu_torch.parallel import convert_sync_bn, replicate
     from ryolo_tpu_torch.train import LOSS_FNS, Trainer
 
-    model = replicate(convert_sync_bn(seeded_model(cfg, dev)), mesh)
+    model = replicate(convert_sync_bn(seeded_model(cfg, dev, ver)), mesh)
     loss_fn = LOSS_FNS["csl"](model.anchors, NC, cfg["hyp"], dev,
-                              reducer=mesh)
+                              reducer=reducer or mesh)
     return Trainer(model, loss_fn, "SGD", 0.01, mesh=mesh)
 
 
@@ -2557,7 +2588,8 @@ def phase_dp_world1(split, names, cfg, phase6, device="cuda:0",
         "in the dp ranges: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in coll.items()))
     check(launches == TRAIN_STEPS, launches)
-    return dict(render_launches=launches, before=before, first=first)
+    return dict(render_launches=launches, before=before, first=first,
+                plain=(plain_sd, plain_items))
 
 
 def dp_rank(out, split, cli_root, names, cfg, steps):
@@ -2565,10 +2597,8 @@ def dp_rank(out, split, cli_root, names, cfg, steps):
     steps of phase 6's run on this rank's share (b = 8 / dp), then the
     train CLI for an epoch and ``--resume`` to a second; what it saw goes
     to ``<out>/rank<r>.pt``."""
-    import ryolo_tpu_torch.train.__main__ as cli
-    from ryolo_tpu_torch.ops import cuda_nms, cuda_render
+    from ryolo_tpu_torch.ops import cuda_render
     from ryolo_tpu_torch.parallel import current_mesh
-    from ryolo_tpu_torch.train import Trainer
     from ryolo_tpu_torch.utils.device import set_float32_math
 
     mesh = current_mesh()
@@ -2610,6 +2640,19 @@ def dp_rank(out, split, cli_root, names, cfg, steps):
     res["averaged"] = cpu_state(trainer.model)
     del trainer, bank, it
     torch.cuda.empty_cache()
+
+    res.update(cli_in_rank(mesh, cli_root, cfg))
+    torch.save(res, os.path.join(out, f"rank{mesh.rank}.pt"))
+
+
+def cli_in_rank(mesh, cli_root, cfg):
+    """The train CLI in this rank of ``mesh`` (``--dp``, ``--sp`` its own):
+    an epoch, then ``--resume`` to a second, in ``cli_root``; the render
+    launches of each step, the epochs run, each eval's ``nms_mask`` and
+    ``nms_scan`` launches, metrics and time, the checkpoint writes."""
+    import ryolo_tpu_torch.train.__main__ as cli
+    from ryolo_tpu_torch.ops import cuda_nms, cuda_render
+    from ryolo_tpu_torch.train import Trainer
 
     writes, epochs, per_step, evals = [], [], [], []
     step_fn, train_epoch, evaluate = (Trainer.train_step_rendered,
@@ -2656,20 +2699,53 @@ def dp_rank(out, split, cli_root, names, cfg, steps):
                 args = Namespace(
                     epochs=n_epochs, optimizer="SGD", lr=0.01,
                     batch_size=BATCH, img_size=IMG, weights_path="",
-                    model_name=f"smoke_dp{mesh.dp}", mode="csl",
+                    model_name=f"smoke_dp{mesh.dp}_sp{mesh.sp}", mode="csl",
                     ver="yolov7", data=os.path.join(cli_root, "data.yaml"),
                     config=os.path.join(REPO, "configs", "hyp.yaml"),
                     max_targets=300, yes=True, resume=resume, profile=False,
                     dtype="f32", device_augment=True, cache_images=False,
-                    device_cache=True, dp=mesh.dp, sp=1, device="cuda")
+                    device_cache=True, dp=mesh.dp, sp=mesh.sp, device="cuda")
                 t0 = time.perf_counter()
                 cli.Train(args).train()
                 cli_walls.append(time.perf_counter() - t0)
     finally:
         os.chdir(cwd)
-    res.update(writes=writes, epochs=epochs, cli_step_launches=per_step,
-               evals=evals, cli_walls=cli_walls)
-    torch.save(res, os.path.join(out, f"rank{mesh.rank}.pt"))
+    return dict(writes=writes, epochs=epochs, cli_step_launches=per_step,
+                evals=evals, cli_walls=cli_walls)
+
+
+def check_cli_ranks(ranks, what, cli_root, cfg, dp, sp):
+    """Phase 17/18's train CLI in each rank: one render launch a step, the
+    epochs [0, 1], one ``nms_mask`` and one ``nms_scan`` a rank an eval,
+    the same metrics on every rank, checkpoints from rank 0 alone that
+    load strict into a fresh model."""
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.utils.checkpoint import load_pth
+
+    for r in ranks:
+        check(r["epochs"] == [0, 1], f"{what}: epochs {r['epochs']}")
+        check(r["cli_step_launches"] == [1] * (2 * CLI_TRAIN // BATCH),
+              f"{what}: CLI render launches {r['cli_step_launches']}")
+        check([(e["nms_mask"], e["nms_scan"]) for e in r["evals"]]
+              == [(1, 1)] * 2, f"{what}: eval launches {r['evals']}")
+        check(all(math.isfinite(v) for e in r["evals"] for v in e["metrics"]),
+              r["evals"])
+        check([e["metrics"] for e in r["evals"]]
+              == [e["metrics"] for e in ranks[0]["evals"]],
+              f"{what}: ranks' metrics differ")
+        if r is not ranks[0]:
+            check(r["writes"] == [], f"{what}: rank writes {r['writes']}")
+    a = ranks[0]
+    check(a["writes"] == ["save_pth", "save_pth", "save_train_state",
+                          "save_pth", "save_train_state"]
+          or a["writes"] == ["save_pth", "save_pth", "save_train_state",
+                             "save_pth", "save_pth", "save_train_state"],
+          f"{what}: rank 0 writes {a['writes']}")
+    sd = load_pth(os.path.join(cli_root, "weights", f"smoke_dp{dp}_sp{sp}",
+                               "last.pth"))
+    check(not any(k.startswith("module.") for k in sd), "module. keys")
+    Yolo(NC, cfg["model"], mode="csl", ver="yolov7").load_state_dict(
+        sd, strict=True)
 
 
 def phase_dp_ranks(tmp, split, names, cfg, world1, label, device, backend):
@@ -2678,9 +2754,7 @@ def phase_dp_ranks(tmp, split, names, cfg, world1, label, device, backend):
     against (a)'s on the same global batch, one render launch a rank a
     step, the train CLI's sharded eval (one ``nms_mask`` and one
     ``nms_scan`` a rank a batch), checkpoints from rank 0 alone."""
-    from ryolo_tpu_torch.nn import Yolo
     from ryolo_tpu_torch.parallel import launch
-    from ryolo_tpu_torch.utils.checkpoint import load_pth
 
     out = os.path.join(tmp, f"dp_{label}")
     os.makedirs(out)
@@ -2727,26 +2801,7 @@ def phase_dp_ranks(tmp, split, names, cfg, world1, label, device, backend):
     for r in ranks:
         check(r["step_launches"] == [1] * DP_SHARED_STEPS,
               f"rank {r['rank']} render launches {r['step_launches']}")
-        check(r["epochs"] == [0, 1], f"epochs {r['epochs']}")
-        check(r["cli_step_launches"] == [1] * (2 * CLI_TRAIN // BATCH),
-              f"CLI render launches {r['cli_step_launches']}")
-        check([(e["nms_mask"], e["nms_scan"]) for e in r["evals"]]
-              == [(1, 1)] * 2, f"eval launches {r['evals']}")
-        check(all(math.isfinite(v) for e in r["evals"] for v in e["metrics"]),
-              r["evals"])
-    check([e["metrics"] for e in a["evals"]]
-          == [e["metrics"] for e in b["evals"]], "ranks' metrics differ")
-    check(a["writes"] == ["save_pth", "save_pth", "save_train_state",
-                          "save_pth", "save_train_state"]
-          or a["writes"] == ["save_pth", "save_pth", "save_train_state",
-                             "save_pth", "save_pth", "save_train_state"],
-          f"rank 0 writes {a['writes']}")
-    check(b["writes"] == [], f"rank 1 writes {b['writes']}")
-    weights = os.path.join(cli_root, "weights", "smoke_dp2", "last.pth")
-    sd = load_pth(weights)
-    check(not any(k.startswith("module.") for k in sd), "module. keys")
-    Yolo(NC, cfg["model"], mode="csl", ver="yolov7").load_state_dict(
-        sd, strict=True)
+    check_cli_ranks(ranks, what, cli_root, cfg, 2, 1)
     log("dp", f"{what}: {wall:.1f} s in all (two processes' start, build "
         "and bank included); the step walls are two processes sharing "
         "one card, not a speed of data parallelism" if backend == "gloo"
@@ -2757,6 +2812,348 @@ def phase_dp_ranks(tmp, split, names, cfg, world1, label, device, backend):
                 nms={k: sum(e[k] for r in ranks for e in r["evals"])
                      for k in ("nms_mask", "nms_scan")},
                 walls=[w for r in ranks for w in r["walls"][1:]])
+
+
+# phase 18: spatial sharding (train --dp N --sp S).  The steps a rank of
+# (a), the first held against the plain Trainer's on the same global batch
+SP_STEPS = 3
+SP_VERS = ("yolov7", "yolov5")
+# the gathered head maps of (a)'s forward (training mode, before any
+# update): the largest difference over the map's largest entry, against
+# one process's forward on the card at the same weights, with the same
+# synced BatchNorm (a world-1 group: the split alone differs) and with
+# cuDNN's (the plain model).  The CPU test (tests/test_torch_spatial_step.py)
+# measures the split at ~1e-6 of the maps in eval mode; in training mode at
+# random weights the BatchNorms amplify any rounding, and probes on an H100
+# 80GB HBM3 at 700 W read 1.2e-4 to 2.9e-4 (cuDNN's default and
+# benchmarked algorithms gave bit-equal maps).  So the bound is
+# SP_FWD_FACTOR times the card's own envelope of the plain forward, measured
+# each run: the same forward in channels-last layout (other cuDNN kernels,
+# the same sums) and on the batch in reverse order (BatchNorm's sums in
+# another order), the larger of the two distances
+SP_FWD_FACTOR = 5.0
+
+
+def max_rel(got, want):
+    """The largest difference of the maps ``got`` and ``want`` over the
+    largest entry of ``want``, the worst map's."""
+    return max(((g.float() - w.float()).abs().max()
+                / w.float().abs().max()).item() for g, w in zip(got, want))
+
+
+def quiet_collectives(calls):
+    """``torch.distributed``'s all-reduce and all-gather with the CUDA sync
+    debug mode off while they run (gloo stages CUDA tensors through the
+    host, so it synchronizes inside each call by design), each call
+    appended to ``calls``: a step's other host syncs still show."""
+    import torch.distributed as dist
+
+    def wrap(name):
+        fn = getattr(dist, name)
+
+        def call(*a, **kw):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                calls.append(name)
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return call
+    return patched([(dist, n, wrap(n)) for n in ("all_reduce", "all_gather")])
+
+
+def halo_windows(model):
+    """The windows of ``model`` that cross the row split: every conv wider
+    than 1x1 and the three same-size pools of its SPP block."""
+    return 3 + sum(m.kernel_size[0] > 1 for m in model.modules()
+                   if isinstance(m, torch.nn.Conv2d))
+
+
+def plain_forward_and_step(cfg, ver, spec, bank, dev):
+    """On the card, one process: the training-mode head maps of phase 6's
+    first batch with cuDNN's BatchNorm (and their envelope: the batch in
+    reverse order, channels-last) and with the synced one in a world-1
+    gloo group, then the plain Trainer's first step on it, as phase 17(a)
+    computes it."""
+    from ryolo_tpu_torch.data.device_augment import render_batch
+    from ryolo_tpu_torch.parallel import close_mesh, convert_sync_bn, make_mesh
+    from ryolo_tpu_torch.parallel.mesh import free_port
+    from ryolo_tpu_torch.train import Trainer
+
+    images = render_batch(spec, BATCH, bank=bank, device=dev)
+    heads = {}
+    with torch.no_grad():
+        model = seeded_model(cfg, dev, ver).train()
+        heads["plain"] = [h.cpu() for h in model(images)]
+        envelope = [[h.flip(0).cpu() for h in model(images.flip(0))]]
+        model.to(memory_format=torch.channels_last)
+        envelope.append([h.cpu() for h in model(
+            images.contiguous(memory_format=torch.channels_last))])
+        del model
+        make_mesh(1, device=str(dev), backend="gloo", rank=0,
+                  init_method=f"tcp://localhost:{free_port()}")
+        try:
+            heads["synced"] = [h.cpu() for h in convert_sync_bn(
+                seeded_model(cfg, dev, ver)).train()(images)]
+        finally:
+            close_mesh()
+    model = seeded_model(cfg, dev, ver)
+    before = cpu_state(model)
+    trainer = Trainer(model, train_loss_fn(cfg, model, dev), "SGD", 0.01)
+    _, items = trainer.train_step_rendered(spec, bank, DP_CHECK_LR, 1, BATCH)
+    res = dict(heads=heads, before=before,
+               envelope=[max_rel(e, heads["plain"]) for e in envelope],
+               plain=(cpu_state(model),
+                      {k: v.item() for k, v in items.items()}))
+    del trainer, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def sp_rank(out, split, cli_root, names, cfg, steps):
+    """One rank of phase 18(a)/(c), in a process of its own, for each of
+    ``SP_VERS``: the forward of its rows of the group's first batch, the
+    head maps gathered (and again with every borrowed halo row zeroed, the
+    control that must fail); ``steps`` steps from the seeded weights (one
+    render a rank a step, the halo exchanges, host syncs outside the
+    collectives, peak memory); one step with the loss counts summed over
+    all ranks (the control that must fail); then the train CLI for an
+    epoch and ``--resume`` (v7).  Writes ``<out>/rank<r>.pt``."""
+    import dataclasses
+
+    from ryolo_tpu_torch.data.device_augment import render_batch
+    from ryolo_tpu_torch.ops import cuda_render
+    from ryolo_tpu_torch.parallel import COLLECTIVES, current_mesh, spatial
+    from ryolo_tpu_torch.utils.device import set_float32_math
+
+    mesh = current_mesh()
+    dev, b = mesh.device, BATCH // mesh.groups
+    set_float32_math(dev)
+    torch.backends.cudnn.benchmark = True
+    loader, bank = dp_loader(split, names, cfg, (mesh.group, mesh.groups), b,
+                             dev)
+    it = iter(loader)
+    batches = [next(it) for _ in range(steps)]
+    del it
+    res = {"rank": mesh.rank, "device": str(dev), "vers": {},
+           "paths": list(batches[0]["paths"])}
+    cuda_render.LAUNCHES["render"] = 0
+    for ver in SP_VERS:
+        r = res["vers"][ver] = {"walls": [], "step_launches": [],
+                                "syncs": [], "collectives": []}
+        trainer = dp_trainer(cfg, mesh, dev, ver)
+        r["halo_windows"] = halo_windows(trainer.model)
+        images = render_batch(batches[0], b, bank=bank, device=dev)
+        with torch.no_grad():
+            heads = [h.cpu() for h in spatial.spatial_forward(
+                trainer.model.train(), images, mesh)]
+            plan = spatial._halo_plan
+
+            def zeroed(*a):  # every borrowed row a fill row
+                up, down, rows = plan(*a)
+                return ([(None, 0, p1 - p0) for _, p0, p1 in up],
+                        [(None, 0, p1 - p0) for _, p0, p1 in down], rows)
+            with patched([(spatial, "_halo_plan", zeroed)]):
+                zero = [h.cpu() for h in spatial.spatial_forward(
+                    trainer.model, images, mesh)]
+        r["fingerprint"] = [float(h.double().sum()) for h in heads]
+        r["control_rel"] = max_rel(zero, heads)
+        if mesh.rank == 0:
+            r["heads"] = heads
+        del trainer, images, zero, heads
+        torch.cuda.empty_cache()
+
+        trainer = dp_trainer(cfg, mesh, dev, ver)
+        r["before"] = cpu_state(trainer.model) if mesh.rank == 0 else None
+        torch.cuda.reset_peak_memory_stats(dev)
+        for step in range(1, steps + 1):
+            acc, lr = warmup_step(step, len(loader), cfg)
+            n0, c0 = cuda_render.LAUNCHES["render"], dict(COLLECTIVES)
+            calls = []
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    with quiet_collectives(calls):
+                        _, items = trainer.train_step_rendered(
+                            batches[step - 1], bank, lr, acc, b)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize(dev)
+            r["walls"].append((time.perf_counter() - t0) * 1e3)
+            r["step_launches"].append(cuda_render.LAUNCHES["render"] - n0)
+            r["syncs"].append([str(w.message)[:160] for w in caught
+                               if "synchroniz" in str(w.message)])
+            r["collectives"].append(dict(
+                {k: COLLECTIVES[k] - c0[k] for k in COLLECTIVES},
+                calls=len(calls)))
+            vals = {k: v.item() for k, v in items.items()}
+            check(all(math.isfinite(v) for v in vals.values()), vals)
+            if step == 1:
+                r["first"] = (cpu_state(trainer.model) if mesh.rank == 0
+                              else None, vals)
+                r["first_fingerprint"] = sum(
+                    float(p.double().sum())
+                    for p in trainer.model.parameters())
+                r["first_mem"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                torch.cuda.reset_peak_memory_stats(dev)
+        r["mem"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del trainer
+        torch.cuda.empty_cache()
+        # the control: the loss counts and items summed over every rank,
+        # each target counted sp times
+        trainer = dp_trainer(cfg, mesh, dev, ver,
+                             reducer=dataclasses.replace(mesh, dp_group=None))
+        trainer.train_step_rendered(batches[0], bank, DP_CHECK_LR, 1, b)
+        r["all_ranks"] = cpu_state(trainer.model) if mesh.rank == 0 else None
+        del trainer
+        torch.cuda.empty_cache()
+    res["render_launches"] = cuda_render.LAUNCHES["render"]
+    del bank
+    torch.cuda.empty_cache()
+    res.update(cli_in_rank(mesh, cli_root, cfg))
+    torch.save(res, os.path.join(out, f"rank{mesh.rank}.pt"))
+
+
+def phase_sp(tmp, split, names, cfg, plain_mem, label="a", dp=2,
+             device="cuda:0", backend="gloo"):
+    """Phase 18(a) or (c): ``dp`` ranks, ``sp = 2``, by
+    ``ryolo_tpu_torch.parallel.launch`` through :func:`sp_rank`; for v7-CSL
+    and v5-CSL the gathered forward against the plain one-process forward
+    and the first update against the plain Trainer's (both computed here
+    first, on the same global batch), the controls, the counts, each rank's
+    peak memory against ``plain_mem`` (phase 6 and 11's, GiB); then the
+    train CLI with ``--dp dp --sp 2``."""
+    from ryolo_tpu_torch.parallel import launch
+    from ryolo_tpu_torch.parallel.spatial import row_split
+
+    sp = 2
+    dev = torch.device("cuda:0")
+    loader, bank = dp_loader(split, names, cfg, (0, 1), BATCH, dev)
+    first = next(iter(loader))
+    first["paths"] = list(first["paths"])
+    torch.backends.cudnn.benchmark = True
+    plain = {ver: plain_forward_and_step(cfg, ver, first, bank, dev)
+             for ver in SP_VERS}
+    del loader, bank
+    torch.cuda.empty_cache()
+    out = os.path.join(tmp, f"sp_{label}")
+    os.makedirs(out)
+    cli_root = os.path.join(tmp, "cli")
+    t0 = time.perf_counter()
+    launch(f"{__name__}:sp_rank", dp,
+           (out, split, cli_root, names, cfg, SP_STEPS), device=device,
+           backend=backend, sp=sp)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(dp)]
+    what = f"({label}) {dp} ranks, sp {sp}, {backend}, " + " and ".join(
+        r["device"] for r in ranks)
+    rows = row_split(IMG, sp)
+    failed = []  # every reading is logged before the first failure stops
+
+    def expect(ok, what):
+        if not ok:
+            failed.append(what)
+
+    for ver in SP_VERS:
+        p = plain[ver]
+        a = ranks[0]["vers"][ver]
+        # rank 0 holds group 0's images: their rows of the whole batch
+        idx = [first["paths"].index(q) for q in ranks[0]["paths"]]
+        fwd = {k: max_rel(a["heads"], [m[idx] for m in h])
+               for k, h in p["heads"].items()}
+        bound = SP_FWD_FACTOR * max(p["envelope"])
+        log("sp", f"{what}, {ver}: rows {rows} of {IMG}; gathered head maps "
+            f"within {fwd['synced']:.2e} of the largest entry of one "
+            f"process's forward with the synced BatchNorm, {fwd['plain']:.2e} "
+            "of the plain model's; the plain forward's own envelope: "
+            f"{p['envelope'][0]:.2e} on the batch reversed, "
+            f"{p['envelope'][1]:.2e} channels-last (bound {SP_FWD_FACTOR:g} x "
+            f"the larger: {bound:.2e}); the halo rows zeroed: "
+            f"{a['control_rel']:.2e} (must exceed the bound)")
+        for k, v in fwd.items():
+            expect(v <= bound, f"{ver} forward ({k}) {v} > {bound}")
+        expect(a["control_rel"] > bound,
+               f"{ver} zeroed halos pass: {a['control_rel']}")
+        for r in ranks:
+            v = r["vers"][ver]
+            expect(v["fingerprint"] == ranks[r["rank"] // sp * sp][
+                "vers"][ver]["fingerprint"],
+                f"{ver}: the gathered maps differ within a group")
+            expect(v["first_fingerprint"] == a["first_fingerprint"]
+                   and v["first"][1] == a["first"][1],
+                   f"{ver}: ranks' first steps differ")
+            expect(v["step_launches"] == [1] * SP_STEPS,
+                   f"{ver} rank {r['rank']} render launches "
+                   f"{v['step_launches']}")
+            expect(all(not s for s in v["syncs"][1:]),
+                   f"{ver} rank {r['rank']} host syncs {v['syncs']}")
+            want_halo = 2 * v["halo_windows"] - 1
+            expect(all(c["halo"] == want_halo and c["rows"] == 3
+                       for c in v["collectives"]),
+                   f"{ver}: collectives {v['collectives']}, halo {want_halo}")
+            log("sp", f"{what}, {ver}, rank {r['rank']}: step walls "
+                f"{[round(w, 1) for w in v['walls']]} ms (two processes "
+                "sharing one card, not a speed; the first includes the "
+                f"warm-up); peak memory {v['first_mem']:.2f} GiB in step 1, "
+                f"{v['mem']:.2f} GiB in steps 2..{SP_STEPS} against "
+                f"{plain_mem.get(ver, float('nan')):.2f} GiB of the "
+                "one-process run (phase 6/11); per step "
+                f"{v['collectives'][-1]} (halo: {v['halo_windows']} windows "
+                "forward, all but the stem's backward), host syncs outside "
+                f"the collectives {[len(s) for s in v['syncs']]}")
+        gaps = step_gaps(a["first"][0], p["plain"][0], p["before"])
+        worst = max(abs(a["first"][1][k] / w - 1)
+                    for k, w in p["plain"][1].items())
+        ctl = step_gaps(a["all_ranks"], p["plain"][0], p["before"])
+        log("sp", f"({label}) {ver}: the first step against the plain "
+            f"Trainer's on the same global batch: loss items within "
+            f"{worst:.2e}, BN statistics {gaps[0]:.2e}, update error "
+            f"{gaps[1]:.2e} in the worst tensor, {gaps[2]:.2e} over all "
+            f"parameters (bounds {DP_STEP_BOUNDS}); the control, loss counts "
+            f"summed over all ranks: BN statistics {ctl[0]:.2e}, update "
+            f"{ctl[2]:.2e} (must exceed {DP_STEP_BOUNDS['total']:.3g})")
+        expect(worst <= DP_STEP_BOUNDS["items"], f"{ver} items {worst}")
+        expect(all(g <= DP_STEP_BOUNDS[k] for g, k in zip(
+            gaps, ("stats", "tensor", "total"))), f"{ver} step {gaps}")
+        expect(ctl[2] > DP_STEP_BOUNDS["total"], f"{ver}: all-rank counts "
+               f"pass the update bound: {ctl}")
+    for r in ranks:
+        # the CLI part is (b) of the one-card run
+        log("sp", f"({'b' if label == 'a' else label}) {what[4:]}: rank "
+            f"{r['rank']}: train CLI "
+            f"--dp {dp} --sp {sp}, {r['epochs']} epochs "
+            f"in {[round(w, 1) for w in r['cli_walls']]} s, evals "
+            + "; ".join(f"{e['ms']:.0f} ms, nms_mask {e['nms_mask']}, "
+                        f"nms_scan {e['nms_scan']}, metrics "
+                        f"{[round(v, 6) for v in e['metrics']]}"
+                        for e in r["evals"])
+            + f"; checkpoint writes {r['writes']}")
+    log("sp", f"{what}: {wall:.1f} s in all (the processes' start, build and "
+        "bank included)")
+    check(not failed, failed)
+    check_cli_ranks(ranks, what, cli_root, cfg, dp, sp)
+    return dict(render_launches=sum(r["render_launches"] for r in ranks),
+                cli_render_launches=sum(sum(r["cli_step_launches"])
+                                        for r in ranks),
+                nms={k: sum(e[k] for r in ranks for e in r["evals"])
+                     for k in ("nms_mask", "nms_scan")})
+
+
+def sp_phases(tmp, split, names, cfg, plain_mem):
+    """Phase 18: (a) on ``cuda:0`` over gloo, (c) over NCCL on four cards
+    where there are four; ``{label: phase_sp's counts}``."""
+    runs = {"a": phase_sp(tmp, split, names, cfg, plain_mem)}
+    if torch.cuda.device_count() >= 4:
+        runs["c"] = phase_sp(tmp, split, names, cfg, plain_mem, "c", 4,
+                             "cuda", "nccl")
+    else:
+        log("sp", f"(c) not run: {torch.cuda.device_count()} card; it runs "
+            "--dp 4 --sp 2 over NCCL, one card a rank")
+    return runs
 
 
 def main():
@@ -2845,6 +3242,12 @@ def main():
         else:
             log("dp", f"(c) not run: {torch.cuda.device_count()} card; it "
                 "runs (b)'s 2 ranks over NCCL, one card each")
+        # phase 18: spatial sharding (train --dp N --sp 2): (a) 2 gloo
+        # ranks sharing the card, one group; (c) 4 NCCL ranks on four cards
+        # where there are four
+        plain_mem = {"yolov7": train["results"]["tile bank, taps"]["mem"],
+                     "yolov5": train_v5["results"]["tile bank, taps"]["mem"]}
+        sp_runs = sp_phases(tmp, split, names, cfg, plain_mem)
 
     # each path's launches, counted from 0 around its own runs
     by_path = {key: {path: sum(r["launches"][key] for r in res.values())
@@ -2863,6 +3266,8 @@ def main():
                             eval_int8=eval_int8["launches"][key])
         for label, run in dp_runs.items():
             by_path[key][f"eval_dp2_{label}"] = run["nms"][key]
+        for label, run in sp_runs.items():
+            by_path[key][f"eval_sp2_{label}"] = run["nms"][key]
     by_path["render"] = {"train": train["render_launches"],
                          "train_cli": cli["render_launches"],
                          "train_v5": train_v5["render_launches"],
@@ -2875,6 +3280,10 @@ def main():
     for label, run in dp_runs.items():
         by_path["render"][f"train_dp2_{label}"] = run["render_launches"]
         by_path["render"][f"train_cli_dp2_{label}"] = run[
+            "cli_render_launches"]
+    for label, run in sp_runs.items():
+        by_path["render"][f"train_sp2_{label}"] = run["render_launches"]
+        by_path["render"][f"train_cli_sp2_{label}"] = run[
             "cli_render_launches"]
     launches = {key: sum(v.values()) for key, v in by_path.items()}
     iou_launches = sum(r["iou_launches"] for res in (main_res, det_v5, det_v4,

@@ -16,10 +16,13 @@ flight.  The loss items stay on the device and are read
 once, after the loop.
 
 With a ``mesh`` (data parallelism, JAX ``evaluate(mesh=...)`` :182-223)
-each rank runs its rows of every padded batch, so the batch size must
-divide by the mesh's size, as in JAX; the val loss is the global batch's
-(the loss function's reducer), the per-image statistics are gathered to
-rank 0 in image order, and rank 0 computes the metrics once and
+each group of the mesh runs its rows of every padded batch, so the batch
+size must divide by the number of groups (JAX's ``mesh.shape["dp"]``);
+the height is not split (JAX's ``batch_sharding(spatial=False)``
+:216-221): the ``sp`` ranks of a group compute the same rows.  The val
+loss is the global batch's (the loss function's reducer, over the
+groups), the per-image statistics of one rank of each group are gathered
+to rank 0 in image order, and rank 0 computes the metrics once and
 broadcasts them, so that every rank takes the same ``best.pth`` decision.
 
 The JAX package's jit step cache (``_STEP_CACHE``, ``clear_step_cache``)
@@ -181,9 +184,9 @@ def evaluate(
     calling): this rank's share of each batch on the mesh's device (module
     docstring).  Returns ``(mp, mr, map50, map50_95, mean loss items)``."""
     if mesh is not None:
-        if batch_size % mesh.dp:
+        if batch_size % mesh.groups:
             raise ValueError(f"eval batch_size {batch_size} not divisible "
-                             f"by mesh size {mesh.dp}")
+                             f"by mesh size {mesh.groups}")
         device = mesh.device
     main = mesh is None or mesh.is_main
     device = torch.device(device if device is not None
@@ -227,10 +230,10 @@ def evaluate(
             n_batches += 1
             arrays = _pad_batch({k: v for k, v in batch.items()
                                  if k != "paths"}, batch_size)
-            if mesh is not None:  # this rank's rows, and its real images
+            if mesh is not None:  # this group's rows, and its real images
                 arrays = shard_batch(arrays, mesh)
-                b = batch_size // mesh.dp
-                real_b = min(max(real_b - mesh.rank * b, 0), b)
+                b = batch_size // mesh.groups
+                real_b = min(max(real_b - mesh.group * b, 0), b)
             dets, valid, items = eval_step(
                 model, upload(arrays, device, div255), loss_fn, conf_thres,
                 iou_thres, max_nms, max_det)
@@ -249,10 +252,11 @@ def evaluate(
         per_batch = [f.result() for f in futures]
     if mesh is not None:
         # every rank's statistics to rank 0, batch by batch in rank order:
-        # the images' order
+        # the images' order, one rank of each group
         ranks = [None] * mesh.dp if main else None
         dist.gather_object(per_batch, ranks, dst=0)
         if main:
+            ranks = ranks[::mesh.sp]
             per_batch = [[s for r in ranks for s in r[i]]
                          for i in range(n_batches)]
     stats = [s for batch_stats in per_batch for s in batch_stats]

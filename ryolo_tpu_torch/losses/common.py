@@ -12,6 +12,12 @@ masked mean divides by the ``count`` of unmasked elements summed over the
 ranks (:func:`level_counts`), and an unmasked mean over equal shards is
 the local mean over the number of ``shards``.  The shares sum to the
 global loss, and the ranks' gradients to its gradient.
+
+Under ``--sp`` the ``sp`` ranks of a group hold the same images and the
+same whole head maps (:func:`ryolo_tpu_torch.parallel.spatial.gather_rows`),
+so the counts and items sum over the groups, one rank of each, and the
+``shards`` are the groups: a sum over all ranks would count each target
+``sp`` times, and the loss would still be finite.
 """
 
 from __future__ import annotations
@@ -62,17 +68,17 @@ def bce_loss(logits, targets, pos_weight=1.0, fl_gamma: float = 0.0,
 
 def level_counts(valid_masks, reducer=None):
     """``(counts, shards)``: the number of valid candidates of each level's
-    ``(B, K)`` mask, float32, summed over the ranks of ``reducer`` (a
+    ``(B, K)`` mask, float32, summed over the groups of ``reducer`` (a
     :class:`~ryolo_tpu_torch.parallel.mesh.Mesh`; no gradient flows through
-    them), and the number of ranks (1 without a reducer)."""
+    them), and the number of groups (1 without a reducer)."""
     counts = torch.stack([m.sum() for m in valid_masks]).float()
     if reducer is None:
         return counts, 1
-    return reducer.sum(counts), reducer.dp
+    return reducer.sum(counts), reducer.groups
 
 
 def reduce_items(items: dict, reducer=None) -> dict:
-    """Loss items (each rank's share) summed over the ranks, detached."""
+    """Loss items (each group's share) summed over the groups, detached."""
     if reducer is None:
         return items
     ref = next(v for v in items.values() if isinstance(v, torch.Tensor))

@@ -54,14 +54,24 @@ ACTIVATIONS = {"mish": F.mish, "leaky": _leaky, "swish": F.silu,
                "linear": _identity}
 
 
+def _spatial():
+    # imported at the call: ryolo_tpu_torch.parallel imports this module
+    from ryolo_tpu_torch.parallel import spatial
+
+    return spatial
+
+
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
-    """k x k stride-1 max pool, same-size output, -inf padding."""
-    return F.max_pool2d(x, k, stride=1, padding=k // 2)
+    """k x k stride-1 max pool, same-size output, -inf padding (inside
+    ``train --sp``'s split, with its halo:
+    :func:`ryolo_tpu_torch.parallel.spatial.max_pool2d`)."""
+    return _spatial().max_pool2d(x, k, 1, k // 2)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample."""
-    return F.interpolate(x, scale_factor=2.0, mode="nearest")
+    """Nearest-neighbour 2x upsample (inside ``train --sp``'s split, a
+    rank's rows, checked to double into its rows of the finer level)."""
+    return _spatial().upsample2x(x)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -297,7 +307,7 @@ class MaxConv(nn.Module):
         self.cv3 = ConvBlock(c_, c_, 3, 2, "swish", deploy=deploy)
 
     def forward(self, x):
-        x1 = self.cv1(F.max_pool2d(x, 2, 2))
+        x1 = self.cv1(_spatial().max_pool2d(x, 2, 2, 0))
         x2 = self.cv3(self.cv2(x))
         return torch.cat([x1, x2], 1)
 

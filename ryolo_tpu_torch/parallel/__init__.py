@@ -1,4 +1,5 @@
-"""Data parallelism over processes: the mesh, the synced BatchNorm."""
+"""Data parallelism over processes: the mesh, the synced BatchNorm, and
+spatial sharding (:mod:`ryolo_tpu_torch.parallel.spatial`)."""
 
 from ryolo_tpu_torch.parallel.mesh import (COLLECTIVES, Mesh,  # noqa: F401
                                            all_reduce_grads, close_mesh,

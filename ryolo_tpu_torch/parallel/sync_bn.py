@@ -19,11 +19,16 @@ variance, n/(n-1) larger.  :class:`SyncBatchNorm2d` keeps JAX's:
   all-reduce adds the ranks' (each rank's loss is its share of the global
   loss, so the gradient over the ranks is a sum).
 
-With one rank the collectives sum nothing and the layer is JAX's
-single-device BatchNorm.  :func:`convert_sync_bn` swaps every
-:class:`~ryolo_tpu_torch.nn.blocks.BatchNorm2d` of a model for this one,
-keeping the parameters, buffers and their names: the ``.pth`` layout does
-not change.  In eval mode the layer is the plain BatchNorm.
+Under ``--sp`` (:mod:`ryolo_tpu_torch.parallel.spatial`) the arithmetic is
+the same: a layer normalises a conv's output, which holds this rank's own
+rows only (the halo rows are read by the convs, never normalised), so the
+counts over the ranks sum to the global batch's pixels and the statistics
+are the global batch's.  With one rank the collectives sum nothing and
+the layer is JAX's single-device BatchNorm.  :func:`convert_sync_bn`
+swaps every :class:`~ryolo_tpu_torch.nn.blocks.BatchNorm2d` of a model
+for this one, keeping the parameters, buffers and their names: the
+``.pth`` layout does not change.  In eval mode the layer is the plain
+BatchNorm.
 """
 
 from __future__ import annotations

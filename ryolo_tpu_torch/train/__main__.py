@@ -28,8 +28,17 @@ each rank joins from the environment.  Rank r runs on ``cuda:LOCAL_RANK``
 share of each epoch at B/N a batch, keeps the whole train split's tile
 bank, renders its share (one launch a step on a card) and runs its rows
 of each padded eval batch.  Rank 0 alone logs, writes TensorBoard,
-``.pth`` and ``last.state``; every rank reads ``--resume``.  ``--sp`` above
-1 (the image height split across devices) raises: ROADMAP §A18.
+``.pth`` and ``last.state``; every rank reads ``--resume``.
+
+``--sp S`` (with ``--dp N`` above 1, which ``S`` must divide, as JAX's
+``make_mesh`` asserts) splits each image's height over ``S`` of the ``N``
+ranks (:mod:`ryolo_tpu_torch.parallel.spatial`): the batch splits over
+the ``N / S`` groups, each rank loads its group's share (``shard=(group,
+N / S)``; a group's ranks load the same batches), renders the group's
+images (one launch a step on a card) and runs its rows, with a halo
+exchange before every conv and pool that crosses the split.  The per-epoch
+eval splits the batch over the groups and not the height, as JAX's does.
+With ``--dp 1`` no mesh is built and ``--sp`` is ignored, as in JAX.
 """
 
 from __future__ import annotations
@@ -98,11 +107,10 @@ class Train:
 
     def _check_options(self):
         args = self.args
-        if args.sp > 1:
-            raise NotImplementedError(
-                "--sp above 1: spatial sharding needs a conv halo exchange, "
-                "ROADMAP §A18 (the sp part of §A15)")
         if args.dp > 1:
+            if args.sp < 1 or args.dp % args.sp:
+                raise ValueError(f"--dp {args.dp} not divisible by --sp "
+                                 f"{args.sp}")
             if torch.device(args.device).index is not None:
                 raise ValueError(
                     f"--device {args.device} with --dp {args.dp}: rank r "
@@ -117,9 +125,11 @@ class Train:
         args = self.args
         if args.dp == 1:
             return None
-        mesh = current_mesh() or make_mesh(args.dp, device=args.device)
-        if mesh.dp != args.dp:
-            raise ValueError(f"--dp {args.dp} in a group of {mesh.dp} ranks")
+        mesh = current_mesh() or make_mesh(args.dp, args.sp,
+                                           device=args.device)
+        if (mesh.dp, mesh.sp) != (args.dp, args.sp):
+            raise ValueError(f"--dp {args.dp} --sp {args.sp} in a group of "
+                             f"{mesh.dp} ranks, sp {mesh.sp}")
         return mesh
 
     def train(self):
@@ -129,7 +139,7 @@ class Train:
                 and "RANK" not in os.environ):
             # one command trains as JAX's does: spawn the ranks here
             launch("ryolo_tpu_torch.train.__main__:_train_rank",
-                   args.dp, (args,), device=args.device)
+                   args.dp, (args,), device=args.device, sp=args.sp)
             return
         mesh = self._mesh()
         main = mesh is None or mesh.is_main
@@ -176,14 +186,15 @@ class Train:
                                       reducer=mesh)
         csl = args.mode == "csl"
 
-        # under --dp each rank loads its strided share at B / dp a batch
-        dp = 1 if mesh is None else mesh.dp
+        # under --dp each group loads its strided share at B / groups a
+        # batch (under --sp a group's ranks the same)
+        groups = 1 if mesh is None else mesh.groups
         train_dataset, train_loader = load_data(
             data["train"], data["names"], data["type"], hyp_cfg, csl,
-            img_size=args.img_size, batch_size=args.batch_size // dp,
+            img_size=args.img_size, batch_size=args.batch_size // groups,
             augment=True, shuffle=True, max_targets=args.max_targets,
             drop_last=True,
-            shard=None if mesh is None else (mesh.rank, mesh.dp),
+            shard=None if mesh is None else (mesh.group, groups),
             device_augment=args.device_augment,
             cache_images=args.cache_images, device_cache=args.device_cache)
         iters_per_epoch = len(train_loader)
@@ -233,7 +244,7 @@ class Train:
                 main)
 
             # per-epoch eval on the deploy-FUSED graph in the training
-            # dtype, twice the batch (under --dp each rank its rows)
+            # dtype, twice the batch (under --dp each group its rows)
             mp, mr, map50, map5095, total_val_loss = evaluate(
                 fuse_for_inference(model, dtype=dtype), loss_fn, data,
                 hyp_cfg, csl,
@@ -323,7 +334,7 @@ class Train:
                 acc_now, lr_now = accumulate, lr_epoch
 
             def run_step():
-                if args.device_augment:  # this rank's rows of the batch
+                if args.device_augment:  # this group's images
                     return trainer.train_step_rendered(
                         batch, tile_bank, lr_now, acc_now,
                         len(batch["paths"]))
@@ -403,7 +414,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="data-parallel ranks (processes; --batch_size "
                              "is the global batch)")
     parser.add_argument("--sp", type=int, default=1,
-                        help="spatial sharding factor (only 1 is ported)")
+                        help="spatial sharding factor: of the --dp ranks, "
+                             "the ones that split each image's height")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default), cuda:N or cpu")
     return parser

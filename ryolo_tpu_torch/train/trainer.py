@@ -33,6 +33,15 @@ ranks' gradients in one all-reduce right before each update, and not on
 the micro-batches that only accumulate (the sum is linear), so the update
 is JAX's.  No wrapper (``DistributedDataParallel``) goes around the model:
 its state-dict names stay the reference's.
+
+Spatial sharding (``--dp N --sp S``, JAX ``make_mesh(N, sp=S)``): a
+``mesh`` with ``sp`` above 1 takes the group's whole images, and each rank
+runs the forward on its rows with the convs' and pools' halo exchanges
+and gathers the head maps whole before the loss
+(:func:`ryolo_tpu_torch.parallel.spatial.spatial_forward`; the Trainer
+converts the model's convs, :func:`~ryolo_tpu_torch.parallel.spatial.
+convert_spatial`).  The loss and items it returns are global, counted
+once per group.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from torch import nn
 from ryolo_tpu_torch.data.device_augment import render_batch, to_device
 from ryolo_tpu_torch.losses import csl_loss, kfiou_loss
 from ryolo_tpu_torch.parallel.mesh import all_reduce_grads
+from ryolo_tpu_torch.parallel.spatial import convert_spatial, spatial_forward
 
 
 def one_cycle(y1: float = 0.0, y2: float = 1.0, steps: int = 100):
@@ -132,6 +142,9 @@ class Trainer:
                  dtype: torch.dtype = torch.float32, mesh=None):
         self.model = model
         self.mesh = mesh  # the ranks whose gradients each update sums
+        self.spatial = mesh is not None and mesh.sp > 1
+        if self.spatial:
+            convert_spatial(model)
         self.loss_fn = loss_fn  # (outputs, batch) -> (loss, items)
         self.optimizer = make_optimizer(optimizer_name, model.parameters(),
                                         base_lr)
@@ -146,14 +159,18 @@ class Trainer:
         into ``.grad``), and the update with learning rate ``lr`` once
         ``accumulate`` micro-batches are in (the forward in ``dtype``, the
         loss in float32).  ``batch``: ``images`` (B, 3, S, S) float32 and
-        the targets, on the model's device.  Returns
+        the targets, on the model's device (under ``sp`` the group's whole
+        images: this rank runs its rows).  Returns
         ``(loss, items)`` as device tensors, global under a mesh; nothing
         here waits for the device (NCCL's collectives included)."""
         self.model.train()
         images = batch["images"]
         with torch.autocast(images.device.type, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
-            outputs = self.model(images)
+            if self.spatial:
+                outputs = spatial_forward(self.model, images, self.mesh)
+            else:
+                outputs = self.model(images)
         loss, items = self.loss_fn(outputs, batch)
         loss.backward()
         self.accum_count += 1

@@ -338,9 +338,13 @@ def _imports(path):
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "ryolo_tpu_torch").rglob("*.py"))
     # the data-parallel package, and the rank bodies the tests spawn
-    assert {"__init__.py", "mesh.py", "sync_bn.py"} <= {
+    assert {"__init__.py", "mesh.py", "sync_bn.py", "spatial.py"} <= {
         f.name for f in files if f.parent.name == "parallel"}
-    files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dp_ranks.py"]
+    assert REPO / "ryolo_tpu_torch" / "display_inputs.py" in files
+    files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dp_ranks.py",
+              REPO / "tests" / "torch_sp_ranks.py",
+              REPO / "scripts" / "torch_dp_grad_probe.py",
+              REPO / "scripts" / "torch_sp_memory.py"]
     assert len(files) > 15
     banned = {"jax", "jaxlib", "flax", "optax", "ryolo_tpu"}
     for f in files:

@@ -167,9 +167,11 @@ def _check_dp_step(mode, ranks):
     _assert_step_within(got, ranks[0]["items"], single, single_items, sd,
                         f"{mode} --dp 2 against the port's --dp 1")
     # every BatchNorm synced twice (forward, backward), the loss counts and
-    # items once each, one gradient all-reduce
+    # items once each, one gradient all-reduce; no row split, so no halo
+    # exchange and no head-map gather
     n_bn = sum(k.endswith("running_var") for k in sd)
-    assert ranks[0]["collectives"] == {"bn": 2 * n_bn, "loss": 2, "grad": 1}
+    assert ranks[0]["collectives"] == {"bn": 2 * n_bn, "loss": 2, "grad": 1,
+                                       "halo": 0, "rows": 0}
     return want, sd
 
 

@@ -425,24 +425,10 @@ def test_train_state_keeps_pending_accumulation(tmp_path):
         assert torch.equal(p, q)
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(dp=2, sp=2), "A15"), (dict(sp=2), "A15")])
-def test_unported_options_raise(synth, tmp_path, monkeypatch, change, match):
-    """``--sp`` above 1 (with or without ``--dp``) raises, naming ROADMAP
-    §A18, the ``sp`` part of §A15 (``--dp`` is ported:
-    tests/test_torch_parallel_cli.py)."""
+def test_cuda_without_card_raises(synth, tmp_path, monkeypatch):
     from ryolo_tpu_torch.train.__main__ import Train, build_parser
 
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match) as err:
-        Train(_args(synth, **change)).train()
-    assert "§A18" in str(err.value)
     assert build_parser().parse_args([]).device == "cuda"
-
-
-def test_cuda_without_card_raises(synth, tmp_path, monkeypatch):
-    from ryolo_tpu_torch.train.__main__ import Train
-
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -13,11 +13,13 @@ import numpy as np
 import torch
 
 
-def run(dp, out, jobs):
+def run(dp, out, jobs, sp=1):
     """Each ``(key, name, args)`` of ``jobs``, in order, as ``name(*args)``
-    of this module in each of ``dp`` gloo ranks on the CPU, all in one
-    process group (a file store under ``out``, so that parallel test
-    workers do not collide); returns each rank's ``{key: result}``.  Pass
+    of this module (or of ``module`` for a ``"module:name"``) in each of
+    ``dp`` gloo ranks on the CPU, ``sp`` of them splitting each image's
+    height, all in one process group (a file store under ``out``, so that
+    parallel test workers do not collide); returns each rank's ``{key:
+    result}``.  Pass
     numpy arrays, not tensors: spawning moves a tensor argument's storage
     into shared memory, which leaves numpy views of the old storage
     dangling."""
@@ -28,13 +30,23 @@ def run(dp, out, jobs):
     if os.path.exists(store):
         os.remove(store)
     launch("tests.torch_dp_ranks:_rank_jobs", dp, (out, jobs), device="cpu",
-           init_method=f"file://{store}")
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(dp)]
+           init_method=f"file://{store}", sp=sp)
+    paths = [os.path.join(out, f"rank{r}.pt") for r in range(dp)]
+    results = [torch.load(p, weights_only=False) for p in paths]
+    for p in paths:  # full-width state dicts: up to ~0.5 GB a rank
+        os.remove(p)
+    return results
 
 
 def _rank_jobs(out, jobs):
-    results = {key: globals()[name](*args) for key, name, args in jobs}
+    import importlib
+
+    def fn(name):
+        module, _, attr = name.rpartition(":")
+        return getattr(importlib.import_module(module), attr) if module \
+            else globals()[attr]
+
+    results = {key: fn(name)(*args) for key, name, args in jobs}
     torch.save(results, os.path.join(out, f"rank{_mesh().rank}.pt"))
 
 
