@@ -113,10 +113,33 @@ Phases, each reported on its own lines:
    and ``--resume``, its eval one ``nms_mask`` and one ``nms_scan`` a rank
    a batch; (c) ``--dp 4 --sp 2`` over NCCL, only where there are four
    cards.
+19. trained weights (the recipe of ``tests/test_torch_e2e.py``, after
+   ``tests/test_trained_parity.py``): (a) YOLOv5-CSL (520 steps) and
+   YOLOv5-KFIoU (900 steps, lr x 0.1 after step 400), nc = 2, from
+   ``weights_init_normal`` on the synthetic set (8 train and 4 val images
+   at 96 px, written by :func:`write_custom_set`, the files of
+   ``tests/make_synth_data.py``), trained on the card in float32 with Adam
+   at 2e-3, batch 4, no augmentation: the loss criterion (the last 10
+   losses below half the first 10), the step time from CUDA events and the
+   host wait; (b) ``evaluate`` of the trained weights on the val split on
+   the card in float32, bf16 and int8 (the float32 graph with the wide
+   convs int8) and on the CPU in float32, and on the training images in
+   float32 on the card and the CPU: card against CPU within 5e-3 on both
+   mAPs and both splits, the floors of ``TRAINED_FLOORS`` in float32 and
+   bf16 (CSL: mAP@.5 above 0.14 on the val split, 0.5 on the training
+   images; KFIoU: 0.02), bf16's and int8's mAP against float32, the int8
+   graph's products exact and its decoded rows card against CPU
+   (``INT8_TRAINED_BOUND``), one ``nms_mask`` and one ``nms_scan`` a card
+   batch; (c) the
+   trained CSL model's ``evaluate`` on 16 scenes at 800 px with 100-200
+   objects at the trained pixel size, batch 8, conf 0.001, iou 0.65, timed
+   as phase 8: images/s, the candidates into the NMS and the boxes kept per
+   image, the post-process, ``nms_mask``, ``nms_scan`` and matcher ms a
+   batch, ``nms_mask``'s bound at the pairs the far reject leaves.
 
 Phases 11-14 and 16 run beside the YOLOv7-CSL phases that share their data:
 their detect and eval after phase 9, their training (and phase 15) after
-phase 10; phases 17 and 18 run last.  The eval
+phase 10; phases 17, 18 and 19 run last.  The eval
 runs of v7-CSL, v5-CSL and v7-KFIoU also count, on their second batch,
 the pairs of the NMS mask that the far reject leaves, for ``nms_mask``'s
 bound at the path's own shape.
@@ -159,8 +182,12 @@ def check(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+T_START = time.perf_counter()
+
+
 def log(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase} {time.perf_counter() - T_START:.1f} s] {msg}",
+          flush=True)
 
 
 def cuda_ms(fn, iters):
@@ -902,6 +929,55 @@ def write_dota_split(root, names, rng, n=TRAIN_IMAGES):
             f.write("\n".join(rows) + "\n")
 
 
+SYNTH_NAMES = ["greenbox", "redbox"]
+
+
+def write_custom_split(out_dir, n_images, img_size, rng, w_range=(0.08, 0.18),
+                       ratio=(1.5, 3.0), max_obj=5, min_obj=1):
+    """A custom-format split (``im*.png`` and ``im*.txt`` rows ``cx cy w h
+    theta class``, pixels and radians) of ``n_images`` noisy scenes with
+    filled rotated rectangles of the two classes of :data:`SYNTH_NAMES`,
+    drawn from ``rng`` in the order of ``tests/make_synth_data.py``'s
+    ``make_split``, so the same ``rng`` writes the same files."""
+    import cv2
+
+    from ryolo_tpu_torch.data.datasets import xywha_to_polys_np
+
+    n_classes = len(SYNTH_NAMES)
+    os.makedirs(out_dir, exist_ok=True)
+    for _ in range(n_classes):  # make_split's palette draws, overwritten
+        rng.integers(30, 255, 3)
+    palette = [(40, 200, 40), (40, 40, 220)]
+    for i in range(n_images):
+        img = rng.integers(0, 60, (img_size, img_size, 3)).astype(np.uint8)
+        rows = []
+        for _ in range(int(rng.integers(min_obj, max_obj))):
+            cls = int(rng.integers(0, n_classes))
+            w = float(rng.uniform(*w_range) * img_size)
+            h = min(w * float(rng.uniform(*ratio)), img_size * 0.45)
+            x = float(rng.uniform(h, img_size - h))
+            y = float(rng.uniform(h, img_size - h))
+            t = float(rng.uniform(-np.pi / 2, np.pi / 2 - 1e-3))
+            poly = xywha_to_polys_np(
+                np.array([[x, y, w, h, t]], np.float32))[0].astype(np.int32)
+            cv2.fillPoly(img, [poly], palette[cls])
+            rows.append(f"{x:.2f} {y:.2f} {w:.2f} {h:.2f} {t:.5f} {cls}")
+        cv2.imwrite(os.path.join(out_dir, f"im{i:03d}.png"), img)
+        with open(os.path.join(out_dir, f"im{i:03d}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+
+
+def write_custom_set(root, n_images, img_size, seed, w_range, ratio):
+    """``<root>/train`` (``n_images``) and ``<root>/val`` (half as many,
+    at least 2), as ``tests/make_synth_data.py``'s ``main`` writes them
+    (its ``test`` split and ``data.yaml`` come after and are not
+    needed)."""
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_images), ("val", max(n_images // 2, 2))):
+        write_custom_split(os.path.join(root, split), n, img_size, rng,
+                           w_range, ratio)
+
+
 def tag(ver, mode):
     """``yolov5`` for the CSL head, ``yolov5-kfiou`` for the KFIoU head."""
     return ver if mode == "csl" else f"{ver}-{mode}"
@@ -1162,15 +1238,24 @@ F32_STEP_BOUNDS = {"items": 1e-3, "stats": 1e-3, "tensor": 0.05,
 # its first flipped bf16 value on.  The card and the CPU round to bf16 at
 # the same places (autocast's), so on an H100 80GB HBM3 at 700 W the first
 # block agrees to 0.015 of the distance, deeper blocks to 0.65 at most, the
-# update of each parameter that rounding moves by less than 0.3 to 0.71 of
-# its own distance, the BN statistics to 0.62-0.72 (cuDNN's choices vary
-# between runs), and the card's bf16 step lies about 0.95 times the
-# distance from the float32 one.  A float32 card
-# step reads 1.0 at the first block and 0.003 in ``own``; an unchanged
+# update of each parameter that rounding moves by less than 0.3 (``held``)
+# to 0.70-1.10 of its own distance, the BN statistics to 0.52-0.74, and
+# the card's bf16 step lies about 0.95 times the distance from the float32
+# one.  ``held`` follows cuDNN's algorithm search, on as the train CLI sets
+# it.  Its high readings come from two parameters whose update bf16 moves
+# by under 1% (``neck.ia3.implicit`` 0.88%, ``neck.conv7.conv.0.bias``
+# 0.94%), and go with the Hopper fprop kernel
+# ``sm90_xmma_fprop_implicit_gemm_bf16..._tilesize128x128x32``, which the
+# search picks for some forward convolutions and the heuristic never does:
+# of 25 steps on fresh caches (scripts/torch_bf16_step_spread.py) the 12
+# with it read 0.726-0.900, the 13 without 0.699-0.715; one whole-script
+# run read 1.10.  Two bf16 steps that round at independent places read
+# about sqrt(2) there, so the bound is 1.4.  A float32 card step reads 1.0
+# at the first block and 0.003 in ``own`` (1.0 in ``held``); an unchanged
 # state reads over 100 in ``held``; both fail, and the phase asserts that
 # they do.
 BF16_STEP_BOUNDS = {"items": 0.03, "first": 0.05, "blocks": 0.9,
-                    "held_below": 0.3, "n_held": 5, "held": 1.0,
+                    "held_below": 0.3, "n_held": 5, "held": 1.4,
                     "stats": 1.0,
                     "own": (0.5, 2.0)}
 
@@ -1331,13 +1416,15 @@ def phase_train_card_vs_cpu_bf16(split, names, cfg):
     """One YOLOv7-CSL SGD step with the forward in bf16, card against CPU
     at 256 px, batch 2: the loss items, every block's output, the update
     and the BN statistics, each against the CPU's own bf16-to-float32
-    distance (BF16_STEP_BOUNDS); a float32 card step and an unchanged state
-    must fail the same bounds."""
+    distance (BF16_STEP_BOUNDS), the card's convolutions chosen by cuDNN's
+    algorithm search, as the train CLI runs them; a float32 card step and
+    an unchanged state must fail the same bounds."""
     batch = card_vs_cpu_batch(split, names, cfg, "csl")
     model = train_model(cfg, "cpu")
     before = {k: v.clone() for k, v in model.state_dict().items()}
     cpu16 = captured_step(model, cfg, batch, "cpu", "bf16")
     cpu32 = captured_step(model, cfg, batch, "cpu", "f32")
+    torch.backends.cudnn.benchmark = True  # as the train CLI sets it
     card16 = captured_step(model, cfg, batch, "cuda", "bf16")
     card32 = captured_step(model, cfg, batch, "cuda", "f32")
     g = bf16_step_gaps(card16, cpu16, cpu32, before)
@@ -3156,6 +3243,381 @@ def sp_phases(tmp, split, names, cfg, plain_mem):
     return runs
 
 
+# phase 19: trained weights, the recipe of tests/test_torch_e2e.py
+# (tests/test_trained_parity.py:124-186): YOLOv5 with nc = 2 from
+# weights_init_normal on the synthetic set, Adam at 2e-3 with a 50-step
+# warm-up (KFIoU: x 0.1 after step 400), the custom loader at 96 px, batch 4,
+# no augmentation; the last 10 losses below half the first 10
+TRAINED_SET = dict(n_images=8, img_size=96, seed=11, w_range=(0.18, 0.28),
+                   ratio=(1.2, 1.6))
+TRAINED_BATCH = 4
+TRAINED_STEPS = {"csl": 520, "kfiou": 900}
+# two evaluations of one checkpoint within 5e-3 on both mAPs
+# (tests/test_trained_parity.py:257-258).  The floors on mAP@.5: JAX's
+# (:260) are 0.5 (CSL) and 0.02 (KFIoU) on the val split's 9 targets,
+# where one detection's rank moves mAP@.5 by ~0.1.  CSL endpoints of this
+# recipe that differ only in float32 summation order score 0.276 to 0.755
+# there on the card (17 trainings: this phase,
+# scripts/torch_trained_spread.py and scripts/torch_trained_phase.py) and
+# 0.388 to 0.808 on the CPU (5: 1-4 threads, oneDNN on and off,
+# scripts/torch_trained_spread_cpu.py), six and one of them below 0.5.  So the CSL val floor is 0.14, half the
+# lowest of both (a model that learned nothing scores ~0.001); KFIoU keeps
+# JAX's; and JAX's CSL floor holds on the 8 training images' 24 targets,
+# which those endpoints score 0.777 to 0.995 (card) and 0.797 to 0.970
+TRAINED_FLOORS = {"csl": {"val": 0.14, "train": 0.5, "jax_val": 0.5},
+                  "kfiou": {"val": 0.02, "train": 0.02, "jax_val": 0.02}}
+MAP_BOUND = 5e-3
+# 19(c): the eval load of a trained model at the users' size, 800 px scenes
+# with DOTA-like density (100-200 objects) at the trained objects' pixel
+# size (0.18-0.28 x 96 px = 0.0216-0.0336 x 800 px)
+TRAINED_LOAD = dict(n_images=16, img_size=800, w_range=(0.0216, 0.0336),
+                    ratio=(1.2, 1.6), min_obj=100, max_obj=201)
+# the trained int8 graph's decoded rows, card against CPU (int8_gaps),
+# each distance over the CPU's own int8-to-float32 one.  On trained
+# weights the int8 graph turns on its input's last bit: the CPU's own
+# rows, its images nudged up by one ulp, part from its rows by 0.32
+# (confidences) and 0.55 (boxes) (scripts/torch_trained_spread_cpu.py),
+# and the card's part from the CPU's by 0.19-0.67 and 0.12-0.78 (nine
+# readings of six endpoints: scripts/torch_trained_phase.py and this
+# phase; on 800 px scenes the card read 0.458 / 0.387 where the CPU
+# nudged read 0.458 / 0.380), while every int8 product is exact.  Two int8
+# graphs that quantize independently read about sqrt(2), so ``apart`` is
+# 1.4; the card's float32 graph in the int8 graph's place reads ~0 from
+# the CPU's float32 rows, so the int8 rows must lie at least half the
+# distance from them (``quantized``)
+INT8_TRAINED_BOUND = {"apart": 1.4, "quantized": 0.5}
+
+
+def trained_model_train(root, cfg, mode):
+    """Phase 19(a): the recipe on ``cuda:0`` (float32, TF32 off), the loss
+    read once at the end; CUDA events around each ``train_step``, the host
+    clock around each wait for the loader.  Returns the model in eval
+    mode."""
+    from ryolo_tpu_torch.data.loader import load_data
+    from ryolo_tpu_torch.nn import Yolo
+    from ryolo_tpu_torch.ops.render import to_device
+    from ryolo_tpu_torch.train import LOSS_FNS, Trainer, weights_init_normal
+
+    dev, hyp = torch.device("cuda"), cfg["hyp"]
+    model = Yolo(len(SYNTH_NAMES), cfg["model"], mode=mode, ver="yolov5")
+    weights_init_normal(model, torch.Generator().manual_seed(1))
+    model.to(dev)
+    trainer = Trainer(model, LOSS_FNS[mode](model.anchors, len(SYNTH_NAMES),
+                                            hyp, dev), "Adam", 2e-3)
+    _, loader = load_data(os.path.join(root, "train"), SYNTH_NAMES, "custom",
+                          hyp, csl=mode == "csl", img_size=TRAINED_SET[
+                              "img_size"], batch_size=TRAINED_BATCH,
+                          augment=False, shuffle=True, max_targets=16)
+    steps = TRAINED_STEPS[mode]
+    losses, events, waits = [], [], []
+    t_run = time.perf_counter()
+    while len(losses) < steps:
+        it = iter(loader)
+        while len(losses) < steps:
+            t = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            waits.append((time.perf_counter() - t) * 1e3)
+            step = len(losses)
+            base = 2e-3 if (mode == "csl" or step < 400) else 2e-4
+            lr = base * min(1.0, (step + 1) / 50)
+            arrays = {k: to_device(v, dev) for k, v in batch.items()
+                      if k != "paths"}
+            arrays["images"] = arrays["images"].permute(0, 3, 1, 2)
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            loss, _ = trainer.train_step(arrays, lr, 1)
+            e.record()
+            losses.append(loss)
+            events.append((s, e))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    losses = torch.stack(losses).cpu().numpy()
+    ms = [s.elapsed_time(e) for s, e in events]
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(np.isfinite(losses).all(), f"trained {mode}: non-finite loss")
+    check(last < 0.5 * first, f"trained {mode}: loss first 10 {first}, "
+          f"last 10 {last}: not below half")
+    log("trained", f"yolov5-{mode} trained on the card: {steps} steps at "
+        f"{TRAINED_SET['img_size']} px, batch {TRAINED_BATCH}, Adam 2e-3; "
+        f"loss first 10 {first:.5f}, last 10 {last:.5f} (criterion: below "
+        f"half); steps 2..{steps}: step {spread(ms[1:])} ms (CUDA events "
+        f"around train_step), host wait for the loader "
+        f"{np.median(waits[1:]):.3f} [{min(waits[1:]):.3f}-"
+        f"{max(waits[1:]):.3f}] ms; {wall:.1f} s in all, "
+        f"{steps / wall:.1f} steps/s")
+    return model.eval()
+
+
+def trained_eval(model, cfg, data, mode, device, dtype=None, quantize=False,
+                 img=TRAINED_SET["img_size"], batch=TRAINED_BATCH,
+                 max_targets=32):
+    """``fuse_for_inference`` + ``evaluate`` of ``model`` on ``device`` at
+    conf 0.001, iou 0.65 and, by default, 32 targets an image
+    (tests/test_trained_parity.py:215-218): ``((mp, mr, map50, map5095),
+    {nms kernel: launches})``."""
+    from ryolo_tpu_torch.eval.evaluator import evaluate
+    from ryolo_tpu_torch.nn import fuse_for_inference
+    from ryolo_tpu_torch.ops import cuda_nms
+
+    fused = fuse_for_inference(model, dtype=dtype, device=device,
+                               quantize=quantize)
+    # this run's launches only: every count set to 0 just before
+    for key in cuda_nms.LAUNCHES:
+        cuda_nms.LAUNCHES[key] = 0
+    res = evaluate(fused, None, data, cfg["hyp"], mode == "csl", img, batch,
+                   conf_thres=0.001, iou_thres=0.65,
+                   max_targets=max_targets, progress=False, device=device)
+    return res[:4], dict(cuda_nms.LAUNCHES)
+
+
+def trained_images(cfg, path, mode, img, n):
+    """The first ``n`` images of the custom split at ``path`` as the
+    loader gives them, ``(n, 3, img, img)`` float32 on the CPU."""
+    from ryolo_tpu_torch.data.loader import load_data
+
+    _, loader = load_data(path, SYNTH_NAMES, "custom", cfg["hyp"],
+                          mode == "csl", img_size=img, batch_size=n,
+                          augment=False, shuffle=False, workers=1)
+    return torch.as_tensor(np.asarray(next(iter(loader))["images"])).permute(
+        0, 3, 1, 2).float().contiguous()
+
+
+def graph_rows(model, x, device):
+    """The trained ``model``'s fused float32 graph and its int8 graph
+    (dynamic scales, float32 compute, as phase 19 evaluates it) on images
+    ``x``, on ``device``: ``{"f32": decoded rows, "int8": decoded rows}``
+    on the CPU."""
+    from ryolo_tpu_torch.nn import fuse_for_inference
+
+    out = {}
+    for key, quantize in (("f32", False), ("int8", True)):
+        with torch.no_grad():
+            out[key] = fuse_for_inference(model, device=device,
+                                          quantize=quantize)(
+                x.to(device), decode=True)[1].cpu()
+    return out
+
+
+def int8_gaps(got, want):
+    """:func:`graph_rows` ``got`` against ``want`` (the same weights and
+    images), each distance as a multiple of ``want``'s own int8-to-float32
+    distance (L2 over L2, of the confidences and of the box coordinates):
+    ``got``'s int8 rows from ``want``'s int8 rows (``conf``, ``box``) and
+    from ``want``'s float32 rows (``conf to f32``, ``box to f32``); the
+    largest gaps of the int8 rows and of the float32 rows
+    (:func:`dec_gap`)."""
+    def l2(a, b, cols):
+        return (a[..., cols] - b[..., cols]).double().norm().item()
+
+    q, wq, wf = got["int8"], want["int8"], want["f32"]
+    out = {}
+    for name, cols in (("conf", slice(5, None)), ("box", slice(0, 4))):
+        own = l2(wq, wf, cols)
+        out[name] = l2(q, wq, cols) / own
+        out[f"{name} to f32"] = l2(q, wf, cols) / own
+    out["max conf"], out["max box"] = dec_gap(q, wq)
+    out["f32 max conf"], out["f32 max box"] = dec_gap(got["f32"], wf)
+    return out
+
+
+def fmt_gaps(g):
+    return ", ".join(f"{k} {v:.4g}" for k, v in g.items())
+
+
+def int8_within(g):
+    b = INT8_TRAINED_BOUND
+    return all(g[k] <= b["apart"] and g[f"{k} to f32"] >= b["quantized"]
+               for k in ("conf", "box"))
+
+
+def trained_int8_card_vs_cpu(model, cfg, path, mode, img, n):
+    """The trained ``model``'s int8 graph on the first ``n`` images at
+    ``path`` on the card, each int32 accumulator equal to its plain
+    version bit for bit, then card against CPU (:func:`int8_gaps`), held
+    to :data:`INT8_TRAINED_BOUND`; the card's float32 graph in the int8
+    graph's place must fail it.  Returns the gaps (with the count of
+    products checked), and the CPU's own int8
+    graph against itself on the images nudged up by one float32 ulp (the
+    graph's sensitivity to its input's last bit, not bounded)."""
+    from ryolo_tpu_torch.ops import int8_conv
+
+    x = trained_images(cfg, path, mode, img, n)
+    product, exact = int8_conv.int8_conv2d, []
+
+    def compared(q, kq, stride, pad):
+        acc = product(q, kq, stride, pad)
+        exact.append(torch.equal(acc.cpu(), int8_conv.int8_conv2d_plain(
+            q.cpu(), kq.cpu(), stride, pad)))
+        return acc
+
+    with patched([(int8_conv, "int8_conv2d", compared)]):
+        got = graph_rows(model, x, "cuda")
+    check(exact and all(exact), f"trained {mode} int8 at {img} px: "
+          f"{exact.count(False)} of {len(exact)} products differ from the "
+          "plain version")
+    want = graph_rows(model, x, "cpu")
+    gaps = dict(int8_gaps(got, want), products=len(exact))
+    check(int8_within(gaps), f"trained {mode} int8 at {img} px, card "
+          f"against CPU: {gaps}")
+    check(not int8_within(int8_gaps({"int8": got["f32"], "f32": got["f32"]},
+                                    want)),
+          f"trained {mode} at {img} px: the card's float32 rows pass the "
+          "int8 bound")
+    nudged = graph_rows(model, torch.nextafter(x, torch.tensor(2.0)), "cpu")
+    return gaps, int8_gaps(nudged, want)
+
+
+def phase_trained(tmp, cfg):
+    """Phase 19(a)-(b): YOLOv5-CSL and YOLOv5-KFIoU trained on the card
+    (:func:`trained_model_train`), then ``evaluate`` of the trained weights
+    on the val split on the card in float32, bf16 and int8 (the float32
+    graph with the wide convs int8, as tests/test_trained_parity.py:264
+    fuses) and on the CPU in float32; on the training images in float32 on
+    the card and the CPU.  Checks one ``nms_mask`` and one ``nms_scan`` a
+    card batch, card against CPU within 5e-3 on both mAPs and both splits,
+    the floors of :data:`TRAINED_FLOORS` in float32 and bf16, and the int8
+    graph on the val images, its products exact and its decoded rows card
+    against CPU (:func:`trained_int8_card_vs_cpu`); reports bf16's and
+    int8's mAP against float32.  Returns ``{mode: nms_mask (and nms_scan) launches}``
+    and the trained CSL model."""
+    root = os.path.join(tmp, "trained_synth")
+    write_custom_set(root, **TRAINED_SET)
+    splits = {s: {"val": os.path.join(root, s), "names": SYNTH_NAMES,
+                  "type": "custom"} for s in ("val", "train")}
+    n_batches = {s: -(-len([f for f in os.listdir(d["val"])
+                            if f.endswith(".png")]) // TRAINED_BATCH)
+                 for s, d in splits.items()}
+    runs = (("f32", "val", "cuda", None, False),
+            ("bf16", "val", "cuda", torch.bfloat16, False),
+            ("int8", "val", "cuda", None, True),
+            ("cpu f32", "val", "cpu", None, False),
+            ("train f32", "train", "cuda", None, False),
+            ("train cpu f32", "train", "cpu", None, False))
+    out, csl_model = {}, None
+    for mode in ("csl", "kfiou"):
+        torch.cuda.empty_cache()
+        model = trained_model_train(root, cfg, mode)
+        maps, n_launch = {}, 0
+        for key, split, device, dtype, quantize in runs:
+            maps[key], launches = trained_eval(
+                model, cfg, splits[split], mode, device, dtype, quantize)
+            want = n_batches[split] if device == "cuda" else 0
+            check(launches == {"nms_mask": want, "nms_scan": want},
+                  f"trained {mode} {key}: launches {launches}")
+            n_launch += launches["nms_mask"]
+
+        def gap(a, b):
+            return [abs(maps[a][i] - maps[b][i]) for i in (2, 3)]
+        gaps = {k: gap(k, "f32") for k in ("bf16", "int8", "cpu f32")}
+        gaps["train cpu f32"] = gap("train cpu f32", "train f32")
+        int8, nudged = trained_int8_card_vs_cpu(
+            model, cfg, splits["val"]["val"], mode, TRAINED_SET["img_size"],
+            TRAINED_BATCH)
+        floors = TRAINED_FLOORS[mode]
+        log("trained", f"yolov5-{mode} trained weights, conf 0.001, iou "
+            f"0.65, batch {TRAINED_BATCH} at {TRAINED_SET['img_size']} px "
+            "(val: 4 images, train: 8): " + "; ".join(
+                f"{k} mAP@.5 {v[2]:.6f} mAP@.5:.95 {v[3]:.6f}"
+                for k, v in maps.items())
+            + "; gaps (mAP@.5, mAP@.5:.95): " + "; ".join(
+                f"{k} {g[0]:.2e} / {g[1]:.2e}" for k, g in gaps.items())
+            + f"; JAX's val floor {floors['jax_val']}: "
+            + ("met" if maps["f32"][2] > floors["jax_val"] else "not met")
+            + f"; launches {n_launch} nms_mask and nms_scan over "
+            f"{len(runs) - 2} card evals; the int8 graph's decoded rows on "
+            "the 4 val images, card against CPU, over the CPU's int8-to-f32 "
+            f"distance (bounds {INT8_TRAINED_BOUND}): " + fmt_gaps(int8)
+            + "; the CPU against itself with "
+            "the images nudged by one ulp: " + fmt_gaps(nudged))
+        for key in ("f32", "bf16"):
+            check(maps[key][2] > floors["val"], f"trained {mode} {key}: "
+                  f"val mAP@.5 {maps[key][2]}, floor {floors['val']}")
+        check(maps["train f32"][2] > floors["train"], f"trained {mode}: "
+              f"train mAP@.5 {maps['train f32'][2]}, floor "
+              f"{floors['train']}")
+        for key in ("cpu f32", "train cpu f32"):
+            check(max(gaps[key]) <= MAP_BOUND,
+                  f"trained {mode}: card against CPU, {key} {gaps[key]}")
+        if mode == "csl":
+            csl_model = model
+        out[mode] = n_launch
+        del model
+    return out, csl_model
+
+
+def phase_trained_load(tmp, cfg, model):
+    """Phase 19(c): the trained CSL model's ``evaluate`` on 16 scenes at
+    800 px with 100-200 objects at the trained pixel size, batch 8, conf
+    0.001, iou 0.65, once to warm up and once timed with phase 8's spans:
+    images/s, the candidates into the NMS and the boxes kept per image,
+    post-process, ``nms_mask``, ``nms_scan`` and matcher ms a batch, the
+    pairs the far reject leaves on batch 2 with ``nms_mask``'s bound at
+    that shape; one ``nms_mask`` and one ``nms_scan`` a batch.  Returns the
+    launches of the timed run and the bound's numbers."""
+    import ryolo_tpu_torch.eval.evaluator as ev
+    import ryolo_tpu_torch.eval.postprocess as pp
+    from ryolo_tpu_torch.nn import fuse_for_inference
+    from ryolo_tpu_torch.ops import cuda_nms
+
+    kw = dict(TRAINED_LOAD)
+    n, img = kw.pop("n_images"), kw.pop("img_size")
+    split = os.path.join(tmp, "trained_load")
+    write_custom_split(split, n, img, np.random.default_rng(SEED + 19), **kw)
+    data = {"val": split, "names": SYNTH_NAMES, "type": "custom"}
+    fused = fuse_for_inference(model, device="cuda")
+    n_batches = -(-n // BATCH)
+    nms = pp.nms_rotated_masked
+    for run in ("warm-up", "timed"):
+        seen = []
+
+        def keep_input(boxes, scores, valid, *a, **kw):
+            order, keep = nms(boxes, scores, valid, *a, **kw)
+            seen.append((boxes.clone(), valid.clone(), keep.sum(1)))
+            return order, keep
+
+        spans = Spans()
+        for key in cuda_nms.LAUNCHES:
+            cuda_nms.LAUNCHES[key] = 0
+        with eval_spans(spans), patched([(pp, "nms_rotated_masked",
+                                          keep_input)]):
+            mp, mr, map50, map5095, _ = spans.sync_counted(ev.evaluate)(
+                fused, None, data, cfg["hyp"], True, img, BATCH, 0.001,
+                0.65, progress=False, device="cuda")
+        launches = dict(cuda_nms.LAUNCHES)
+        torch.cuda.synchronize()
+        check(launches == {"nms_mask": n_batches, "nms_scan": n_batches},
+              f"trained load {run}: launches {launches} over {n_batches} "
+              "batches")
+        check(len(seen) == n_batches, len(seen))
+        wall = spans.last - spans.first
+        per_batch = {k: spans.ms(k) for k in EVAL_SPANS}
+        # the real images' rows (the last batch is padded to BATCH)
+        cands = [int(v) for _, valid, _ in seen for v in valid.sum(1)][:n]
+        kept = [int(v) for _, _, k in seen for v in k][:n]
+        log("trained_load", f"yolov5-csl trained, {run}: {n} images of "
+            f"{img} px, {n_batches} batches of {BATCH}; {n / wall:.2f} "
+            f"images/s ({wall:.3f} s); P {mp:.4g} R {mr:.4g} mAP@.5 "
+            f"{map50:.4g} mAP@.5:.95 {map5095:.4g}; launches {launches}; "
+            f"host syncs per batch {sum(spans.syncs) / n_batches:.2f} on "
+            "the issuing thread; candidates into the NMS per image "
+            f"{cands}; kept per image {kept}")
+    for b in range(n_batches):
+        log("trained_load", f"batch {b + 1} ms: " + ", ".join(
+            f"{k} {per_batch[k][b]:.3f}" for k in EVAL_SPANS
+            if b < len(per_batch[k])))
+    bound = mask_bound(*seen[1][:2])
+    mask_ms = per_batch["mask"][1]
+    log("trained_load", f"nms_mask on batch 2: valid candidates per image "
+        f"{bound['valid']}, {bound['pairs']} valid pairs decided, "
+        f"{bound['near']} not ruled out by the far reject "
+        f"({100 * bound['near'] / max(bound['pairs'], 1):.2f}%); bound "
+        f"{bound['bound_ms']:.5f} ms ({bound['bound_by']}), measured "
+        f"{mask_ms:.4f} ms ({100 * bound['bound_ms'] / mask_ms:.2f}% of it)")
+    return dict(launches=launches, mask_bound=dict(bound, ms=mask_ms))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3248,6 +3710,11 @@ def main():
         plain_mem = {"yolov7": train["results"]["tile bank, taps"]["mem"],
                      "yolov5": train_v5["results"]["tile bank, taps"]["mem"]}
         sp_runs = sp_phases(tmp, split, names, cfg, plain_mem)
+        # phase 19: trained weights, (a)-(b) YOLOv5-CSL and -KFIoU trained
+        # and evaluated, (c) the trained CSL model's eval load at 800 px
+        trained, csl_model = phase_trained(tmp, cfg)
+        trained_load = phase_trained_load(tmp, cfg, csl_model)
+        del csl_model
 
     # each path's launches, counted from 0 around its own runs
     by_path = {key: {path: sum(r["launches"][key] for r in res.values())
@@ -3268,6 +3735,9 @@ def main():
             by_path[key][f"eval_dp2_{label}"] = run["nms"][key]
         for label, run in sp_runs.items():
             by_path[key][f"eval_sp2_{label}"] = run["nms"][key]
+        for mode, n in trained.items():
+            by_path[key][f"eval_trained_{mode}"] = n
+        by_path[key]["eval_trained_load"] = trained_load["launches"][key]
     by_path["render"] = {"train": train["render_launches"],
                          "train_cli": cli["render_launches"],
                          "train_v5": train_v5["render_launches"],
@@ -3310,7 +3780,8 @@ def main():
                     "ryolo_tpu/ops/rotated_nms.py:127-182)",
         "launches": launches["nms_mask"],
         "launches_by_path": by_path["nms_mask"], **nms["mask"],
-        "path_bounds": bounds,
+        "path_bounds": dict(bounds, trained_load=trained_load[
+            "mask_bound"]),
         "library_ms": None}, {
         "name": "nms_scan", "route": "cuda", "source": nms_src,
         "replaces": "ryolo_tpu/ops/rotated_nms.py:152-212 (XLA while_loop; "
