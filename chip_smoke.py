@@ -1623,10 +1623,11 @@ def calibration_batch(tmp):
 
 
 def detect_runs(tmp, data, weights, spans, ver, mode, runs):
-    from ryolo_tpu_torch.detect import Detect
+    from ryolo_tpu_torch.detect import STAGES, Detect
     from ryolo_tpu_torch.nn.blocks import Int8Conv
     from ryolo_tpu_torch.nn.deploy import calibrate_static_scales
     from ryolo_tpu_torch.ops import cuda_iou, cuda_nms, int8_conv
+    from ryolo_tpu_torch.utils import trace
 
     results = {}
     name = tag(ver, mode)
@@ -1649,25 +1650,38 @@ def detect_runs(tmp, data, weights, spans, ver, mode, runs):
             return model, dt
 
         det._build_model = build_model
-        infer = det.infer
+        infer, fetch = det.infer, det.fetch
 
         def batch_infer(*a, **kw):
-            spans.append({"nms": [], "mask": [], "scan": [], "syncs": []})
+            # a batch: its stage marks, and its host time from the call
+            # into infer to (dets, valid) on the host
+            spans.append({"nms": [], "mask": [], "scan": [], "syncs": [],
+                          "stages": a[5] if len(a) > 5 else kw["stages"],
+                          "t0": time.perf_counter()})
             return infer(*a, **kw)
 
-        det.infer = batch_infer
+        def batch_fetch(*a):
+            out = fetch(*a)
+            spans[-1]["s"] = time.perf_counter() - spans[-1]["t0"]
+            return out
+
+        det.infer, det.fetch = batch_infer, batch_fetch
         spans.clear()
         # the main path's launches only: every count set to 0 just before
         cuda_iou.LAUNCHES["rotated_iou"] = 0
         int8_conv.LAUNCHES["int8_conv2d"] = 0
         for key in cuda_nms.LAUNCHES:
             cuda_nms.LAUNCHES[key] = 0
+        fetched = trace.COUNTS["sync.fetch"]
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
             out = det.detect()
         finally:
             os.chdir(cwd)
+        # the batches the CLI fetched (two copies each), counted by the
+        # port apart from this phase's wrappers
+        nb = (trace.COUNTS["sync.fetch"] - fetched) // 2
         launches = dict(cuda_nms.LAUNCHES)
         iou_launches = cuda_iou.LAUNCHES["rotated_iou"]
         int8_launches = int8_conv.LAUNCHES["int8_conv2d"]
@@ -1675,7 +1689,6 @@ def detect_runs(tmp, data, weights, spans, ver, mode, runs):
         n_quant = sum(isinstance(m, Int8Conv) for m in built[0].modules())
         n_static = sum(isinstance(m, Int8Conv) and m.ascale is not None
                        for m in built[0].modules())
-        nb = len(det.batch_s)
         # every quantized conv once a batch (and once more in the
         # calibration forward of a static run)
         check((dtype == "int8") == (n_quant > 0) and n_static == n_quant *
@@ -1692,17 +1705,18 @@ def detect_runs(tmp, data, weights, spans, ver, mode, runs):
         check(max(n_det) > 0, "no detections")
         syncs = [len(b["syncs"]) for b in spans]
         per_batch = [(len(b["mask"]), len(b["scan"])) for b in spans]
-        check(len(spans) == nb and all(p == (1, 1) for p in per_batch),
+        check(len(spans) == nb > 0 and all(p == (1, 1) for p in per_batch),
               f"{label}: (nms_mask, nms_scan) launches per batch {per_batch}")
         check(launches == {"nms_mask": nb, "nms_scan": nb}, launches)
         check(iou_launches == 0, f"{iou_launches} pairwise IoU launches")
         check(sum(syncs) == 0, f"{label}: NMS host syncs per batch {syncs}: "
               + "; ".join(m for b in spans for m in b["syncs"]))
         # batch 0 carries cuDNN autotuning: steady numbers from batch 2 on
-        steady = det.batch_s[1:]
+        steady = [b["s"] for b in spans[1:]]
         ips = BATCH * len(steady) / sum(steady)
-        stage = {k: float(np.mean([s[k] for s in det.stage_ms[1:]]))
-                 for k in det.stage_ms[0]}
+        stage = {k: float(np.mean([b["stages"].elapsed_ms()[i]
+                                   for b in spans[1:]]))
+                 for i, k in enumerate(STAGES)}
         for key in ("nms", "mask", "scan"):
             stage[key] = float(np.mean([
                 sum(s.elapsed_time(e) for s, e in b[key]) for b in spans[1:]]))

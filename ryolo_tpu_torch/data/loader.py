@@ -28,6 +28,7 @@ import numpy as np
 
 from ryolo_tpu_torch.data.datasets import (MAX_TILES, CustomDataset,
                                            DOTADataset, UCASAODDataset)
+from ryolo_tpu_torch.utils import trace
 
 IDENTITY_MINV = np.array([[1, 0, 0], [0, 1, 0]], np.float32)
 
@@ -171,19 +172,25 @@ class DataLoader:
 
     def _collate_specs(self, samples, indices):
         """Spec batch: B base slots + E mixup-partner slots (fixed shapes)."""
+        partners = sum(r is not None for _, _, r, _, _ in samples)
+        if self.device_cache and partners > self.extra_slots:
+            # partner slots exhausted: a banked spec has no pixel channel
+            # for the host-rendered overflow sample, so this batch falls back
+            # to pixel specs (same per-(seed, epoch, index) draws: exact)
+            with trace.span("loader.fallback"):
+                samples = [self.dataset.get_render_spec(i, self._rng(i),
+                                                        banked=False)
+                           for i in indices]
+                return self._pack_specs(samples, indices, banked=False)
+        return self._pack_specs(samples, indices, self.device_cache)
+
+    def _pack_specs(self, samples, indices, banked: bool):
+        """The batch's spec arrays: bank rows (``banked``) or pixel
+        tiles."""
         B = len(samples)
         E = self.extra_slots
         s = self.dataset.img_size
         BS = B + E
-        banked = self.device_cache
-        if banked and sum(r is not None for _, _, r, _, _ in samples) > E:
-            # partner slots exhausted: a banked spec has no pixel channel
-            # for the host-rendered overflow sample, so this batch falls back
-            # to pixel specs (same per-(seed, epoch, index) draws: exact)
-            banked = False
-            samples = [
-                self.dataset.get_render_spec(i, self._rng(i), banked=False)
-                for i in indices]
         tiles = (np.zeros((BS, MAX_TILES), np.int32) if banked
                  else np.zeros((BS, MAX_TILES, s, s), np.int32))
         region = np.zeros((BS, MAX_TILES, 4), np.float32)
@@ -264,12 +271,14 @@ class DataLoader:
                     break
             while pending:
                 idxs, futs = pending.pop(0)
-                samples = [f.result() for f in futs]
+                with trace.span("loader.wait"):
+                    samples = [f.result() for f in futs]
                 submit_next()
-                if self.device_augment:
-                    yield self._collate_specs(samples, idxs)
-                else:
-                    yield self._collate(samples)
+                with trace.span("loader.collate"):
+                    batch = (self._collate_specs(samples, idxs)
+                             if self.device_augment
+                             else self._collate(samples))
+                yield batch  # outside every span
 
 
 DATASETS = {

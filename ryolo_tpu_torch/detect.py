@@ -30,6 +30,7 @@ from ryolo_tpu_torch.eval.postprocess import (post_process_defer,
                                               post_process_kfiou_defer)
 from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference
 from ryolo_tpu_torch.nn.heads import decode_csl_defer, decode_kfiou_scores
+from ryolo_tpu_torch.utils import trace
 from ryolo_tpu_torch.utils.checkpoint import load_pth
 from ryolo_tpu_torch.utils.config import load_yaml
 from ryolo_tpu_torch.utils.device import (DTYPES, resolve_device,
@@ -41,36 +42,37 @@ STAGES = ("forward", "decode", "post_process")
 
 
 class _Stages:
-    """Per-batch stage times: CUDA events on the card, the host clock on
-    the CPU.  Read after the batch's results reached the host."""
+    """Per-batch stage times: pooled CUDA events on the card
+    (:func:`ryolo_tpu_torch.utils.trace.event`), the host clock on the CPU.
+    Read after the batch's results reached the host; reading gives the
+    events back to the pool."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks = []
+        self._ms = None
 
     def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
+        self.marks.append(trace.event() if self.cuda
+                          else time.perf_counter_ns())
 
     def elapsed_ms(self):
-        m = self.marks
-        if self.cuda:
-            return [m[i].elapsed_time(m[i + 1]) for i in range(len(m) - 1)]
-        return [(m[i + 1] - m[i]) * 1e3 for i in range(len(m) - 1)]
+        if self._ms is None:
+            m = self.marks
+            if self.cuda:
+                self._ms = [m[i].elapsed_time(m[i + 1])
+                            for i in range(len(m) - 1)]
+                trace.release(*m)
+            else:
+                self._ms = [(m[i + 1] - m[i]) * 1e-6
+                            for i in range(len(m) - 1)]
+        return self._ms
 
 
 class Detect:
     def __init__(self, args):
         self.args = args
-        # filled by detect(): per-batch infer seconds, stage ms, and the
-        # whole run's seconds
-        self.batch_s: list = []
-        self.stage_ms: list = []
-        self.total_s = 0.0
+        self.total_s = 0.0  # the whole run's seconds, set by detect()
 
     def _build_model(self, nc: int, config, device: torch.device):
         args = self.args
@@ -91,26 +93,45 @@ class Detect:
     @torch.no_grad()
     def infer(self, model: Yolo, images: np.ndarray, dtype, device, nc: int,
               stages: _Stages):
-        """uint8 ``(B, S, S, 3)`` RGB batch -> ``(dets, valid)`` on device."""
+        """uint8 ``(B, S, S, 3)`` RGB batch -> ``(dets, valid)`` on device.
+        ``stages`` marks forward (the conversion and the model), decode and
+        post-process; the spans (:mod:`ryolo_tpu_torch.utils.trace`) split
+        the upload, the conversion and the model apart."""
         mark = stages.mark
-        x = torch.from_numpy(images).to(device)
-        mark()
-        x = (x.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
-        heads = model(x)
-        mark()
-        conf, iou = float(self.args.conf_thres), float(self.args.nms_thres)
-        if model.mode == "csl":
-            dec = decode_csl_defer(heads, model.anchors, STRIDES, nc)
+        with trace.span("detect.infer", device):
+            with trace.span("detect.upload", device):
+                # a pageable copy: the host waits for the stream
+                trace.count("sync.upload")
+                x = torch.from_numpy(images).to(device)
             mark()
-            dets, valid = post_process_defer(dec, heads, model.na, nc, conf,
-                                             iou)
-        else:
-            scores = decode_kfiou_scores(heads, model.na, nc)
+            with trace.span("detect.convert", device):
+                x = (x.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
+            with trace.span("detect.model", device):
+                heads = model(x)
             mark()
-            dets, valid = post_process_kfiou_defer(
-                scores, heads, model.na, model.anchors, STRIDES, conf, iou)
-        mark()
+            conf, iou = float(self.args.conf_thres), float(self.args.nms_thres)
+            csl = model.mode == "csl"
+            with trace.span("detect.decode", device):
+                dec = (decode_csl_defer(heads, model.anchors, STRIDES, nc)
+                       if csl else decode_kfiou_scores(heads, model.na, nc))
+            mark()
+            with trace.span("detect.post_process", device):
+                if csl:
+                    dets, valid = post_process_defer(dec, heads, model.na,
+                                                     nc, conf, iou)
+                else:
+                    dets, valid = post_process_kfiou_defer(
+                        dec, heads, model.na, model.anchors, STRIDES, conf,
+                        iou)
+            mark()
         return dets, valid
+
+    @staticmethod
+    def fetch(dets: torch.Tensor, valid: torch.Tensor):
+        """``infer``'s ``(dets, valid)`` as numpy arrays on the host: two
+        blocking copies (``sync.fetch``)."""
+        trace.count("sync.fetch", 2)
+        return dets.cpu().numpy(), valid.cpu().numpy()
 
     def detect(self):
         """Run the CLI; returns ``[(path, (n, 7) detections)]``."""
@@ -159,14 +180,9 @@ class Detect:
 
             for paths, images in batches():
                 stages = _Stages(device)
-                t0 = time.time()
-                dets, valid = self.infer(model, images, dtype, device, nc,
-                                         stages)
-                dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
-                t1 = time.time()
+                dets, valid = self.fetch(*self.infer(model, images, dtype,
+                                                     device, nc, stages))
                 ms = dict(zip(STAGES, stages.elapsed_ms()))
-                self.batch_s.append(t1 - t0)
-                self.stage_ms.append(ms)
 
                 boxes = [dets[b][valid[b]] for b in range(len(paths))]
                 num = sum(len(b) for b in boxes)

@@ -19,6 +19,7 @@ import torch
 
 from ryolo_tpu_torch.nn.heads import deferred_kfiou_box
 from ryolo_tpu_torch.ops.rotated_nms import nms_rotated_masked
+from ryolo_tpu_torch.utils import trace
 
 MAX_WH = 4096.0   # class-offset separation
 MAX_NMS = 5000
@@ -111,7 +112,9 @@ def _pp_tail(payload, sel, iou_thres: float, max_nms: int, max_det: int,
     k = min(max_nms, sel.shape[1])
     if k > SMALL_K:
         # one host read, where the JAX package branches with lax.cond
-        n_max = int((sel > 0.0).sum(1).max())
+        with trace.span("detect.host_read", sel.device):
+            trace.count("sync.post_process_read")
+            n_max = int((sel > 0.0).sum(1).max())
         if n_max <= SMALL_K:
             k = SMALL_K
     return _select_nms_compact(payload, sel, k, iou_thres, max_det, theta_fn,
@@ -119,6 +122,9 @@ def _pp_tail(payload, sel, iou_thres: float, max_nms: int, max_det: int,
 
 
 def _select(conf: torch.Tensor, conf_thres: float) -> torch.Tensor:
+    # a blocking copy from pageable memory: on a card the host waits here
+    # for every kernel issued before it (the forward and the decode)
+    trace.count("sync.threshold_upload")
     thres = torch.tensor(conf_thres, dtype=torch.float32, device=conf.device)
     return torch.where(conf > thres, conf, -1.0)
 

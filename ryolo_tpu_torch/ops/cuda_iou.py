@@ -20,9 +20,11 @@ import torch
 
 from ryolo_tpu_torch.ops import _build
 from ryolo_tpu_torch.ops.rotated_iou import pairwise_rotated_iou_plain
+from ryolo_tpu_torch.utils import trace
 
-# Kernel launches, by kernel name; only a launch adds to it.
-LAUNCHES = {"rotated_iou": 0}
+# Kernel launches, by kernel name; only a launch adds to it.  The
+# ``launch`` counters of :mod:`ryolo_tpu_torch.utils.trace`.
+LAUNCHES = trace.group("launch", {"rotated_iou": 0})
 
 # FP32 operations that every pair needs, counted from ops/csrc/rotated_iou.cu:
 # 2 for the re-centring, 16 for box1's corners, 4 clips x 8 signed distances

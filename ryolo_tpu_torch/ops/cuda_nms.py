@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from ryolo_tpu_torch.ops import _build
+from ryolo_tpu_torch.utils import trace
 
 CHUNK = 64
 # The scan keeps one 64-bit word per chunk in dynamic shared memory, which
@@ -34,8 +35,9 @@ CHUNK = 64
 # per block: 47 KiB of words, 6016 chunks.
 MAX_K = (47 * 1024 // 8) * CHUNK
 
-# Kernel launches, by kernel name; only a launch adds to it.
-LAUNCHES = {"nms_mask": 0, "nms_scan": 0}
+# Kernel launches, by kernel name; only a launch adds to it.  The
+# ``launch`` counters of :mod:`ryolo_tpu_torch.utils.trace`.
+LAUNCHES = trace.group("launch", {"nms_mask": 0, "nms_scan": 0})
 
 
 def _fn(name: str, argtypes):

@@ -26,9 +26,11 @@ import torch
 
 from ryolo_tpu_torch.ops import _build
 from ryolo_tpu_torch.ops.render import render_taps_plain, to_device
+from ryolo_tpu_torch.utils import trace
 
-# Kernel launches, by kernel name; only a launch adds to it.
-LAUNCHES = {"render": 0}
+# Kernel launches, by kernel name; only a launch adds to it.  The
+# ``launch`` counters of :mod:`ryolo_tpu_torch.utils.trace`.
+LAUNCHES = trace.group("launch", {"render": 0})
 
 MAX_SLOTS = 16  # tile slots per spec the kernel takes (a spec's keep mask)
 

@@ -18,9 +18,11 @@ import torch
 
 from ryolo_tpu_torch.ops import _build
 from ryolo_tpu_torch.ops.warp import warp_canvas_plain
+from ryolo_tpu_torch.utils import trace
 
-# Kernel launches, by kernel name; only a launch adds to it.
-LAUNCHES = {"warp": 0}
+# Kernel launches, by kernel name; only a launch adds to it.  The
+# ``launch`` counters of :mod:`ryolo_tpu_torch.utils.trace`.
+LAUNCHES = trace.group("launch", {"warp": 0})
 
 # FP32 operations per output pixel of an active spec, counted from
 # ops/csrc/warp.cu: 4 multiplies and 4 adds for the coordinates, 2 floors,

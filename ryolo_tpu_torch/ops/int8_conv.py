@@ -30,9 +30,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ryolo_tpu_torch.utils import trace
+
 # Launches of the card's product (``torch._int_mm``); only a launch adds
-# to it.
-LAUNCHES = {"int8_conv2d": 0}
+# to it.  The ``launch`` counters of :mod:`ryolo_tpu_torch.utils.trace`.
+LAUNCHES = trace.group("launch", {"int8_conv2d": 0})
 
 
 def activation_scale(x32: torch.Tensor) -> torch.Tensor:

@@ -32,16 +32,19 @@ import numpy as np
 import torch
 
 from ryolo_tpu_torch.ops.hsv import _RCP255, _hsv_jitter_planar
+from ryolo_tpu_torch.utils import trace
 
 PAD = 114.0            # letterbox / border value
 
 
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """Host array -> device tensor, through pinned memory and without
-    blocking the host when the device is a card."""
+    blocking the host when the device is a card (counted as
+    ``upload.h2d``)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type == "cpu":
         return t
+    trace.count("upload.h2d")
     return t.pin_memory().to(device, non_blocking=True)
 
 

@@ -45,13 +45,16 @@ from typing import Dict, Iterable, Optional
 import torch
 import torch.distributed as dist
 
+from ryolo_tpu_torch.utils import trace
 from ryolo_tpu_torch.utils.device import resolve_device
 
 # collectives issued, by what they reduce (the synced BatchNorm's forward
 # and backward sums, the loss counts and items, the gradient; under sp the
 # halo exchanges' forward gathers and backward sums, and the head maps' row
-# gathers); the tests and chip_smoke.py read them
-COLLECTIVES = {"bn": 0, "loss": 0, "grad": 0, "halo": 0, "rows": 0}
+# gathers); the tests and chip_smoke.py read them, and the ``collective``
+# counters of :mod:`ryolo_tpu_torch.utils.trace` are this dict
+COLLECTIVES = trace.group("collective", {"bn": 0, "loss": 0, "grad": 0,
+                                        "halo": 0, "rows": 0})
 
 _CURRENT: Optional["Mesh"] = None
 

@@ -57,6 +57,7 @@ from ryolo_tpu_torch.data.device_augment import render_batch, to_device
 from ryolo_tpu_torch.losses import csl_loss, kfiou_loss
 from ryolo_tpu_torch.parallel.mesh import all_reduce_grads
 from ryolo_tpu_torch.parallel.spatial import convert_spatial, spatial_forward
+from ryolo_tpu_torch.utils import trace
 
 
 def one_cycle(y1: float = 0.0, y2: float = 1.0, steps: int = 100):
@@ -162,26 +163,37 @@ class Trainer:
         the targets, on the model's device (under ``sp`` the group's whole
         images: this rank runs its rows).  Returns
         ``(loss, items)`` as device tensors, global under a mesh; nothing
-        here waits for the device (NCCL's collectives included)."""
+        here waits for the device (NCCL's collectives included).  Spans:
+        ``train.step`` (unless :meth:`train_step_rendered` opened it) over
+        ``train.forward``, ``train.loss``, ``train.backward`` and
+        ``train.update`` (over ``train.all_reduce`` under a mesh)."""
         self.model.train()
         images = batch["images"]
-        with torch.autocast(images.device.type, dtype=torch.bfloat16,
-                            enabled=self.dtype == torch.bfloat16):
-            if self.spatial:
-                outputs = spatial_forward(self.model, images, self.mesh)
-            else:
-                outputs = self.model(images)
-        loss, items = self.loss_fn(outputs, batch)
-        loss.backward()
-        self.accum_count += 1
-        if self.accum_count >= accumulate:
-            if self.mesh is not None:
-                all_reduce_grads(self.model.parameters(), self.mesh)
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
-            self.accum_count = 0
+        dev = images.device
+        with trace.span("train.step", dev, once=True):
+            with trace.span("train.forward", dev), torch.autocast(
+                    dev.type, dtype=torch.bfloat16,
+                    enabled=self.dtype == torch.bfloat16):
+                if self.spatial:
+                    outputs = spatial_forward(self.model, images, self.mesh)
+                else:
+                    outputs = self.model(images)
+            with trace.span("train.loss", dev):
+                loss, items = self.loss_fn(outputs, batch)
+            with trace.span("train.backward", dev):
+                loss.backward()
+            self.accum_count += 1
+            if self.accum_count >= accumulate:
+                with trace.span("train.update", dev):
+                    if self.mesh is not None:
+                        with trace.span("train.all_reduce", dev):
+                            all_reduce_grads(self.model.parameters(),
+                                             self.mesh)
+                    for group in self.optimizer.param_groups:
+                        group["lr"] = lr
+                    self.optimizer.step()
+                    self.optimizer.zero_grad(set_to_none=True)
+                self.accum_count = 0
         loss = items.get("total_loss", loss)
         return loss.detach(), {k: v.detach() for k, v in items.items()}
 
@@ -211,11 +223,15 @@ class Trainer:
         (kilobytes with a tile bank), renders on the current stream
         (:func:`ryolo_tpu_torch.data.device_augment.render_batch`; on a
         card ``method="taps"`` is one launch of the tap renderer) and
-        steps, with no host sync in between."""
+        steps, with no host sync in between.  Spans: ``train.step`` over
+        ``train.render``, ``train.targets`` and :meth:`train_step`'s."""
         dev = next(self.model.parameters()).device
-        batch = {"images": render_batch(spec_batch, n_out, bank=bank,
-                                        device=dev, method=method)}
-        for k in ("tgt", "tgt_csl", "tgt_mask"):
-            if k in spec_batch:
-                batch[k] = to_device(spec_batch[k], dev)
-        return self.train_step(batch, lr, accumulate)
+        with trace.span("train.step", dev):
+            with trace.span("train.render", dev):
+                batch = {"images": render_batch(spec_batch, n_out, bank=bank,
+                                                device=dev, method=method)}
+            with trace.span("train.targets", dev):
+                for k in ("tgt", "tgt_csl", "tgt_mask"):
+                    if k in spec_batch:
+                        batch[k] = to_device(spec_batch[k], dev)
+            return self.train_step(batch, lr, accumulate)

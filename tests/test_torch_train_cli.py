@@ -6,6 +6,7 @@ warm-up schedule, 2-epoch runs with and without device augmentation,
 against JAX ``Train(args).train()``."""
 
 import copy
+import json
 import shutil
 from argparse import Namespace
 from pathlib import Path
@@ -195,7 +196,12 @@ def test_cli_two_epochs(synth, tmp_path, monkeypatch, device_augment):
         assert (out / f).is_file(), f
     assert any((out / "logs").iterdir())
     if device_augment:
-        assert list((out / "profile").glob("*.json"))
+        profiles = list((out / "profile").glob("*.json"))
+        assert profiles
+        # the profiled step carries the port's spans as annotations
+        assert any(e.get("cat") == "user_annotation"
+                   and e.get("name") == "train.step" for e in json.loads(
+                       profiles[0].read_text())["traceEvents"])
     model = Yolo(2, MODEL_CFG)
     model.load_state_dict(load_pth(str(out / "last.pth")), strict=True)
     assert all(torch.isfinite(v).all() for v in model.state_dict().values())
