@@ -7,7 +7,10 @@ when no card is found).  The ``.pth`` is deploy-fused
 forward -> deferred decode (CSL: rows without theta; KFIoU: scores alone)
 -> post-process with rotated NMS on the device, and a background thread
 letterboxes the next batches meanwhile.
-Decode and post-process stay float32 under ``--dtype bf16`` and ``int8``.
+Decode and post-process stay float32 under ``--dtype bf16`` and ``int8``,
+and run as the steps of ``eval/postprocess.py`` (:class:`_DecodePost`): on
+a card replayed as CUDA graphs, captured at the first batch of each input
+signature; on the CPU eagerly.  The model runs eagerly.
 ``--dtype int8`` is the bf16 graph with its wide BN-backed convs and
 RepConvs int8 x int8 -> int32 (per-output-channel weight scales, a dynamic
 per-tensor activation scale over the whole batch), as the JAX ``detect.py``
@@ -26,10 +29,14 @@ import numpy as np
 import torch
 
 from ryolo_tpu_torch.data.datasets import ImageDataset
-from ryolo_tpu_torch.eval.postprocess import (post_process_defer,
-                                              post_process_kfiou_defer)
+from ryolo_tpu_torch.eval.postprocess import (MAX_DET, MAX_NMS,
+                                              candidate_count, compact,
+                                              deferred_theta, nms_fields,
+                                              nms_keep, select_rows,
+                                              select_scores, tail_width)
 from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference
-from ryolo_tpu_torch.nn.heads import decode_csl_defer, decode_kfiou_scores
+from ryolo_tpu_torch.nn.heads import (decode_csl_defer, decode_kfiou_scores,
+                                      deferred_kfiou_box)
 from ryolo_tpu_torch.utils import trace
 from ryolo_tpu_torch.utils.checkpoint import load_pth
 from ryolo_tpu_torch.utils.config import load_yaml
@@ -69,10 +76,139 @@ class _Stages:
         return self._ms
 
 
+class _Segment:
+    """``fn(*args)``: eager without a graph memory pool; with one, a CUDA
+    graph captured at the first call (after one eager run, as capture
+    requires, on the side ``stream`` that then captures) and replayed at
+    every call, which returns the capture's own output tensors.  A replay
+    reads the tensors the first call passed: every call passes the same
+    ones, refreshed in place."""
+
+    def __init__(self, fn, pool=None, stream=None):
+        self.fn, self.pool, self.stream = fn, pool, stream
+        self.graph = self.out = None
+
+    def __call__(self, *args):
+        if self.pool is None:
+            return self.fn(*args)
+        if self.graph is None:
+            current = torch.cuda.current_stream(self.stream.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                self.fn(*args)
+            current.wait_stream(self.stream)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, pool=self.pool,
+                                  stream=self.stream):
+                self.out = self.fn(*args)
+            trace.count("graph.capture")
+        self.graph.replay()
+        trace.count("graph.replay")
+        return self.out
+
+
+class _DecodePost:
+    """The decode and post-process of one input signature (the head maps'
+    shapes and dtype, the head, the thresholds) as segments between the
+    points where the host acts: (a) the decode; (b) the class max, the
+    selection and the candidate count, which the host reads to pick the
+    width ``k``; (c_k) the top-k selection and the NMS's inputs; the NMS,
+    eager, through ``eval.postprocess``; (d_k) the compaction.  The same
+    steps as ``post_process_defer`` and ``post_process_kfiou_defer``, which
+    the evaluator calls.
+
+    Without a graph memory pool (the CPU) the segments run eagerly.  With
+    one each segment is a CUDA graph (:class:`_Segment`): the head maps
+    and the NMS's ``keep`` are copied into static buffers, and the NMS's
+    inputs and the results are copied out of the graphs' own, so that they
+    belong to the call."""
+
+    def __init__(self, model, nc: int, conf_thres: float, iou_thres: float,
+                 pool=None, stream=None):
+        csl, na, anchors = model.mode == "csl", model.na, model.anchors
+        self.iou_thres = iou_thres
+        self.graphed = pool is not None
+        self.segment = lambda fn: _Segment(fn, pool, stream)
+        self.heads = None
+        self.tails = {}  # k -> (c_k, d_k, keep buffer)
+
+        def decode(heads):
+            return (decode_csl_defer(heads, anchors, STRIDES, nc) if csl
+                    else decode_kfiou_scores(heads, na, nc))
+
+        def select(dec):
+            payload, sel = (select_rows if csl else select_scores)(
+                dec, conf_thres)
+            return payload, sel, candidate_count(sel)
+
+        def fields(k, heads, payload, sel):
+            if csl:
+                return nms_fields(payload, sel, k, theta_fn=lambda idx:
+                                  deferred_theta(heads, idx, na, nc))
+            return nms_fields(payload, sel, k, box_fn=lambda idx:
+                              deferred_kfiou_box(heads, idx, na, anchors,
+                                                 STRIDES))
+
+        self._decode, self._select = self.segment(decode), self.segment(select)
+        self._fields = fields
+
+    def decode(self, heads):
+        if not self.graphed:
+            self.heads = heads
+        else:
+            if self.heads is None:
+                self.heads = [torch.empty_like(h) for h in heads]
+            for buf, h in zip(self.heads, heads):
+                buf.copy_(h)
+        return self._decode(self.heads)
+
+    def post_process(self, dec):
+        payload, sel, count = self._select(dec)
+        k = tail_width(sel, MAX_NMS, count)
+        if k not in self.tails:
+            keep = (torch.empty((sel.shape[0], k), dtype=torch.bool,
+                                device=sel.device) if self.graphed else None)
+            self.tails[k] = (
+                self.segment(lambda *a: self._fields(k, *a)),
+                self.segment(lambda rows, keep: compact(rows, keep, MAX_DET)),
+                keep)
+        fields, compact_k, keep_buf = self.tails[k]
+        rows, boxes, scores, valid = fields(self.heads, payload, sel)
+        if not self.graphed:
+            return compact_k(rows, nms_keep(boxes, scores, valid,
+                                            self.iou_thres, MAX_DET))
+        keep = nms_keep(boxes.clone(), scores, valid.clone(), self.iou_thres,
+                        MAX_DET)
+        dets, valid = compact_k(rows, keep_buf.copy_(keep))
+        return dets.clone(), valid.clone()
+
+
 class Detect:
     def __init__(self, args):
         self.args = args
         self.total_s = 0.0  # the whole run's seconds, set by detect()
+        # _DecodePost by input signature; on a card one graph memory pool
+        # and one capture stream for all their graphs
+        self._chains = {}
+        self._pool = self._stream = None
+
+    def _chain(self, model, heads, nc: int, device) -> _DecodePost:
+        conf, iou = float(self.args.conf_thres), float(self.args.nms_thres)
+        key = (model.mode, model.na, nc, conf, iou,
+               tuple(np.asarray(a, np.float32).tobytes()
+                     for a in model.anchors),
+               tuple((h.shape, h.dtype, h.device) for h in heads))
+        chain = self._chains.get(key)
+        if chain is None:
+            pool = stream = None
+            if device.type == "cuda":
+                if self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                    self._stream = torch.cuda.Stream(device)
+                pool, stream = self._pool, self._stream
+            chain = self._chains[key] = _DecodePost(model, nc, conf, iou,
+                                                    pool, stream)
+        return chain
 
     def _build_model(self, nc: int, config, device: torch.device):
         args = self.args
@@ -93,10 +229,14 @@ class Detect:
     @torch.no_grad()
     def infer(self, model: Yolo, images: np.ndarray, dtype, device, nc: int,
               stages: _Stages):
-        """uint8 ``(B, S, S, 3)`` RGB batch -> ``(dets, valid)`` on device.
-        ``stages`` marks forward (the conversion and the model), decode and
-        post-process; the spans (:mod:`ryolo_tpu_torch.utils.trace`) split
-        the upload, the conversion and the model apart."""
+        """uint8 ``(B, S, S, 3)`` RGB batch -> ``(dets, valid)`` on device,
+        tensors of this call's own.  ``stages`` marks forward (the
+        conversion and the model), decode and post-process; the spans
+        (:mod:`ryolo_tpu_torch.utils.trace`) split the upload, the
+        conversion and the model apart.  The decode and the post-process
+        run as :class:`_DecodePost`'s segments: on a card replaying the
+        CUDA graphs of the batch's signature (captured at its first
+        batch), on the CPU eagerly."""
         mark = stages.mark
         with trace.span("detect.infer", device):
             with trace.span("detect.upload", device):
@@ -109,20 +249,12 @@ class Detect:
             with trace.span("detect.model", device):
                 heads = model(x)
             mark()
-            conf, iou = float(self.args.conf_thres), float(self.args.nms_thres)
-            csl = model.mode == "csl"
+            chain = self._chain(model, heads, nc, device)
             with trace.span("detect.decode", device):
-                dec = (decode_csl_defer(heads, model.anchors, STRIDES, nc)
-                       if csl else decode_kfiou_scores(heads, model.na, nc))
+                dec = chain.decode(heads)
             mark()
             with trace.span("detect.post_process", device):
-                if csl:
-                    dets, valid = post_process_defer(dec, heads, model.na,
-                                                     nc, conf, iou)
-                else:
-                    dets, valid = post_process_kfiou_defer(
-                        dec, heads, model.na, model.anchors, STRIDES, conf,
-                        iou)
+                dets, valid = chain.post_process(dec)
             mark()
         return dets, valid
 

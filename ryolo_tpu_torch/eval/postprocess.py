@@ -9,6 +9,12 @@ index, cap ``max_nms``, NMS on boxes offset by ``class * 4096`` with
 angles in degrees, cap ``max_det``; outputs ``(B, max_det, 7)`` rows
 ``[x, y, w, h, theta(rad), conf, cls]`` and a ``(B, max_det)`` valid
 mask, kept rows first in score order.
+
+The post-process runs as steps that a caller may also take one by one
+(``Detect.infer`` replays each device step on a card as a CUDA graph):
+``select_rows`` or ``select_scores``, and ``candidate_count``; the host read
+in ``tail_width``, which picks the width ``k``; ``nms_fields``; ``nms_keep``;
+``compact``.
 """
 
 from __future__ import annotations
@@ -69,12 +75,14 @@ def deferred_theta(neck_outs, idx: torch.Tensor, na: int, nc: int):
     return (theta_bin.float() - 90.0) / 180.0 * math.pi
 
 
-def _select_nms_compact(payload, sel, k: int, iou_thres: float,
-                        max_det: int, theta_fn=None, box_fn=None):
-    """Top-k selection, rotated NMS and compaction at width ``k``.
-    ``theta_fn(idx)`` resolves the selected candidates' theta (CSL);
-    ``box_fn(idx) -> (B, k, 5)`` all their box fields, the payload then
-    holding the class alone (KFIoU)."""
+def nms_fields(payload, sel, k: int, theta_fn=None, box_fn=None):
+    """Top-k selection at width ``k``: ``(rows, boxes, scores, valid)``,
+    the selected candidates' rows ``(B, k, 7)`` ``[x, y, w, h, theta,
+    conf, cls]`` by descending score, ties by index, and the NMS's inputs:
+    their boxes offset by class with angles in degrees, scores and valid
+    flags.  ``theta_fn(idx)`` resolves the selected candidates' theta
+    (CSL); ``box_fn(idx) -> (B, k, 5)`` all their box fields, the payload
+    then holding the class alone (KFIoU)."""
     # a stable ascending sort of -sel: descending score, ties by index
     idx = torch.sort(-sel, dim=1, stable=True).indices[:, :k]
     top_scores = sel.gather(1, idx)
@@ -85,61 +93,93 @@ def _select_nms_compact(payload, sel, k: int, iou_thres: float,
         bx, by, bw, bh, bt, tcls = (p.gather(1, idx) for p in payload)
     if theta_fn is not None:
         bt = theta_fn(idx)
-    nms_boxes = torch.stack([bx + tcls * MAX_WH, by + tcls * MAX_WH, bw, bh,
-                             bt * (180.0 / math.pi)], -1)
-    _, keep = nms_rotated_masked(nms_boxes, top_scores, top_scores > 0.0,
-                                 iou_thres, max_keep=max_det, presorted=True)
+    boxes = torch.stack([bx + tcls * MAX_WH, by + tcls * MAX_WH, bw, bh,
+                         bt * (180.0 / math.pi)], -1)
+    rows = torch.stack([bx, by, bw, bh, bt, top_scores, tcls], -1)
+    return rows, boxes, top_scores, top_scores > 0.0
 
-    # kept rows first, in score order; dropped rows sink
-    pos = torch.arange(k, device=sel.device).expand_as(keep)
+
+def nms_keep(boxes, scores, valid, iou_thres: float, max_det: int):
+    """``keep`` ``(B, k)`` of :func:`nms_fields`' candidates, through this
+    module's ``nms_rotated_masked``."""
+    return nms_rotated_masked(boxes, scores, valid, iou_thres,
+                              max_keep=max_det, presorted=True)[1]
+
+
+def compact(rows, keep, max_det: int):
+    """``(dets (B, max_det, 7), valid (B, max_det))``: the kept rows first,
+    in score order; dropped rows sink and read 0."""
+    b, k = keep.shape
+    pos = torch.arange(k, device=keep.device).expand_as(keep)
     perm = torch.sort(torch.where(keep, pos, k), dim=1, stable=True).indices
     md = min(max_det, k)
-    rows = torch.stack([bx, by, bw, bh, bt, top_scores, tcls], -1)
     dets = rows.gather(1, perm[:, :md, None].expand(-1, md, 7))
     n_keep = torch.clamp(keep.sum(1), max=md)
-    out_valid = torch.arange(md, device=sel.device)[None, :] < n_keep[:, None]
+    out_valid = pos[:, :md] < n_keep[:, None]
     dets = torch.where(out_valid[..., None], dets, 0.0)
     if md < max_det:  # keep the (B, max_det) output shape
-        b = dets.shape[0]
         dets = torch.cat([dets, dets.new_zeros(b, max_det - md, 7)], 1)
         out_valid = torch.cat(
             [out_valid, out_valid.new_zeros(b, max_det - md)], 1)
     return dets, out_valid
 
 
-def _pp_tail(payload, sel, iou_thres: float, max_nms: int, max_det: int,
-             theta_fn=None, box_fn=None):
+def candidate_count(sel: torch.Tensor) -> torch.Tensor:
+    """The most candidates above the threshold in one image (0-d)."""
+    return (sel > 0.0).sum(1).max()
+
+
+def tail_width(sel: torch.Tensor, max_nms: int, count=None) -> int:
+    """The width ``k`` of the top-k selection: ``min(max_nms, N)``, or
+    ``SMALL_K`` where no image has more candidates than that.  Deciding
+    takes one host read of ``count`` (:func:`candidate_count` of ``sel``,
+    computed here when not given), where the JAX package branches with
+    ``lax.cond``."""
     k = min(max_nms, sel.shape[1])
     if k > SMALL_K:
-        # one host read, where the JAX package branches with lax.cond
         with trace.span("detect.host_read", sel.device):
             trace.count("sync.post_process_read")
-            n_max = int((sel > 0.0).sum(1).max())
+            n_max = int(candidate_count(sel) if count is None else count)
         if n_max <= SMALL_K:
             k = SMALL_K
-    return _select_nms_compact(payload, sel, k, iou_thres, max_det, theta_fn,
-                               box_fn)
+    return k
+
+
+def _pp_tail(payload, sel, iou_thres: float, max_nms: int, max_det: int,
+             theta_fn=None, box_fn=None):
+    rows, boxes, scores, valid = nms_fields(
+        payload, sel, tail_width(sel, max_nms), theta_fn, box_fn)
+    return compact(rows, nms_keep(boxes, scores, valid, iou_thres, max_det),
+                   max_det)
 
 
 def _select(conf: torch.Tensor, conf_thres: float) -> torch.Tensor:
-    # a blocking copy from pageable memory: on a card the host waits here
-    # for every kernel issued before it (the forward and the decode)
-    trace.count("sync.threshold_upload")
-    thres = torch.tensor(conf_thres, dtype=torch.float32, device=conf.device)
-    return torch.where(conf > thres, conf, -1.0)
+    # a Python scalar against a float32 tensor compares in float32, as
+    # JAX's weakly typed threshold does, and sends nothing to the card
+    return torch.where(conf > conf_thres, conf, -1.0)
 
 
-def _payload_and_sel(predictions, conf_thres: float):
+def select_rows(predictions, conf_thres: float):
+    """``(payload, sel)`` of decoded rows ``(B, N, nc+6)``: the fields x,
+    y, w, h, theta and the class, each ``(B, N)``, and the score where it
+    passes ``conf_thres``, else -1."""
     conf, cls_id = _class_max(predictions)
     sel = _select(conf, conf_thres)
     return [predictions[..., i] for i in range(5)] + [cls_id], sel
+
+
+def select_scores(scores, conf_thres: float):
+    """``(payload, sel)`` of the KFIoU ``(conf, cls_id)``: the class alone,
+    and the score where it passes ``conf_thres``, else -1."""
+    conf, cls_id = scores
+    return [cls_id.float()], _select(conf, conf_thres)
 
 
 def post_process_fixed(predictions: torch.Tensor, conf_thres: float,
                        iou_thres: float, max_nms: int = MAX_NMS,
                        max_det: int = MAX_DET):
     """Post-process fully decoded rows ``(B, N, nc+6)``."""
-    payload, sel = _payload_and_sel(predictions, conf_thres)
+    payload, sel = select_rows(predictions, conf_thres)
     return _pp_tail(payload, sel, iou_thres, max_nms, max_det)
 
 
@@ -148,7 +188,7 @@ def post_process_defer(predictions: torch.Tensor, neck_outs, na: int,
                        max_nms: int = MAX_NMS, max_det: int = MAX_DET):
     """Post-process rows from ``decode_csl_defer`` (theta column 0): theta
     is resolved from the head maps for the selected candidates only."""
-    payload, sel = _payload_and_sel(predictions, conf_thres)
+    payload, sel = select_rows(predictions, conf_thres)
     return _pp_tail(payload, sel, iou_thres, max_nms, max_det,
                     lambda idx: deferred_theta(neck_outs, idx, na, nc))
 
@@ -164,8 +204,7 @@ def post_process_kfiou_defer(scores, neck_outs, na: int, anchors, strides,
     :func:`ryolo_tpu_torch.nn.heads.deferred_kfiou_box` for the selected
     candidates only; the result equals :func:`post_process_fixed` on the
     full :func:`ryolo_tpu_torch.nn.heads.decode_kfiou` rows."""
-    conf, cls_id = scores
-    return _pp_tail([cls_id.float()], _select(conf, conf_thres), iou_thres,
-                    max_nms, max_det,
+    payload, sel = select_scores(scores, conf_thres)
+    return _pp_tail(payload, sel, iou_thres, max_nms, max_det,
                     box_fn=lambda idx: deferred_kfiou_box(
                         neck_outs, idx, na, anchors, strides))

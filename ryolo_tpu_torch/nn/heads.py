@@ -36,10 +36,21 @@ def reshape_head(x: torch.Tensor, na: int, nf: int) -> torch.Tensor:
     return x.view(b, na, nf, gh, gw).permute(0, 1, 3, 4, 2)
 
 
+# a level's anchor table by (device, shape, bytes): sent up once, so that
+# no call uploads it again and a CUDA graph can capture the decode
+_TABLES = {}
+
+
 def _anchor_table(anc, device) -> torch.Tensor:
-    """A level's grid-unit anchors ``(na, 2|3)`` on ``device``, sent up
-    without blocking the host."""
-    return to_device(np.asarray(anc, np.float32), device)
+    """A level's grid-unit anchors ``(na, 2|3)`` on ``device``: sent up
+    without blocking the host at the first call for those anchors and that
+    device, the same tensor at every call after."""
+    a = np.array(anc, np.float32)  # a copy: the cache shares its memory
+    key = (torch.device(device), a.shape, a.tobytes())
+    table = _TABLES.get(key)
+    if table is None:
+        table = _TABLES[key] = to_device(a, device)
+    return table
 
 
 def _sigmoid_fields(x: torch.Tensor, na: int, n: int) -> torch.Tensor:

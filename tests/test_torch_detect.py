@@ -48,8 +48,6 @@ def _args(root, weights, **kw):
 
 def _jax_detections(root, jmodel, variables, img=IMG, conf=CONF):
     """JAX detect.py's infer (:76-110) on the same letterboxed batches."""
-    import math
-
     import jax
     import jax.numpy as jnp
 
@@ -57,12 +55,10 @@ def _jax_detections(root, jmodel, variables, img=IMG, conf=CONF):
     from ryolo_tpu.eval.postprocess import (post_process_defer,
                                             post_process_kfiou_defer)
     from ryolo_tpu.nn import fuse_for_inference
-    from ryolo_tpu.nn.yolo import STRIDES, make_rotated_anchors
+    from ryolo_tpu.nn.yolo import STRIDES
 
     model, dep = fuse_for_inference(jmodel, variables)
-    anchors = make_rotated_anchors(
-        STRIDES, MODEL_CFG["anchors"],
-        [a * math.pi / 180 for a in MODEL_CFG["angles"]])
+    anchors = _kfiou_anchors()
 
     @jax.jit
     def infer(v, images):
@@ -81,6 +77,30 @@ def _jax_detections(root, jmodel, variables, img=IMG, conf=CONF):
         dets, valid = np.asarray(dets), np.asarray(valid)
         out += [(p, dets[b][valid[b]]) for b, (p, _) in enumerate(items)]
     return out
+
+
+def _spy_post_process(monkeypatch, det_mod):
+    """Each batch's ``(dec, heads, (dets, valid))`` as ``Detect.infer``'s
+    post-process (``detect._DecodePost``) saw and returned them."""
+    calls, post = [], det_mod._DecodePost.post_process
+
+    def spy(chain, dec):
+        out = post(chain, dec)
+        calls.append((dec, chain.heads, out))
+        return out
+
+    monkeypatch.setattr(det_mod._DecodePost, "post_process", spy)
+    return calls
+
+
+def _kfiou_anchors():
+    import math
+
+    from ryolo_tpu.nn.yolo import STRIDES, make_rotated_anchors
+
+    return make_rotated_anchors(
+        STRIDES, MODEL_CFG["anchors"],
+        [a * math.pi / 180 for a in MODEL_CFG["angles"]])
 
 
 def _assert_same_detections(got, want):
@@ -142,6 +162,7 @@ def test_kfiou_matches_jax(setup, tmp_path, monkeypatch, ver, conf):
 
     import ryolo_tpu_torch.detect as det_mod
     from ryolo_tpu.eval.postprocess import post_process_kfiou_defer as j_pp
+    from ryolo_tpu.nn.yolo import STRIDES
     from ryolo_tpu.utils.checkpoint import save_pth
     from tests.test_torch_evaluator import _assert_same_keep_set
 
@@ -149,19 +170,13 @@ def test_kfiou_matches_jax(setup, tmp_path, monkeypatch, ver, conf):
     jmodel, variables = jax_model(ver, seed=1, mode="kfiou")
     weights = tmp_path / f"{ver}-kfiou.pth"
     save_pth(variables, ver, str(weights))
-    calls, pp = [], det_mod.post_process_kfiou_defer
-
-    def spy(scores, heads, *a):
-        out = pp(scores, heads, *a)
-        calls.append((scores, heads, a, out))
-        return out
-
-    monkeypatch.setattr(det_mod, "post_process_kfiou_defer", spy)
+    calls = _spy_post_process(monkeypatch, det_mod)
     monkeypatch.chdir(tmp_path)
     got = det_mod.Detect(_args(root, weights, ver=ver, mode="kfiou",
                                img_size=96, conf_thres=conf)).detect()
     assert len(calls) == 2 and sum(len(d) for _, d in got) > 100
-    for scores, heads, a, (d, v) in calls:
+    a = (18, _kfiou_anchors(), STRIDES, conf, IOU)
+    for scores, heads, (d, v) in calls:
         wd, wv = (np.asarray(x) for x in j_pp(
             tuple(jnp.asarray(s.numpy()) for s in scores),
             tuple(jnp.asarray(h.permute(0, 2, 3, 1).numpy()) for h in heads),
@@ -267,6 +282,7 @@ def test_int8_detect_matches_jax_post_process(setup, tmp_path, monkeypatch,
     import ryolo_tpu_torch.detect as det_mod
     from ryolo_tpu.eval.postprocess import post_process_defer as j_pp
     from ryolo_tpu.eval.postprocess import post_process_kfiou_defer as j_kpp
+    from ryolo_tpu.nn.yolo import STRIDES
     from ryolo_tpu.utils.checkpoint import save_pth
     from ryolo_tpu_torch.nn.blocks import Int8Conv
 
@@ -275,22 +291,15 @@ def test_int8_detect_matches_jax_post_process(setup, tmp_path, monkeypatch,
         _, variables = jax_model(ver, seed=1, mode=mode)
         weights = tmp_path / f"{ver}-{mode}.pth"
         save_pth(variables, ver, str(weights))
-    name = ("post_process_defer" if mode == "csl"
-            else "post_process_kfiou_defer")
-    calls, pp = [], getattr(det_mod, name)
-
-    def spy(dec, heads, *a):
-        out = pp(dec, heads, *a)
-        calls.append((dec, heads, a, out))
-        return out
-
-    monkeypatch.setattr(det_mod, name, spy)
+    calls = _spy_post_process(monkeypatch, det_mod)
     monkeypatch.chdir(tmp_path)
     det = det_mod.Detect(_args(root, weights, ver=ver, mode=mode,
                                img_size=96, conf_thres=conf, dtype="int8"))
     got = det.detect()
     assert len(calls) == 2 and sum(len(d) for _, d in got) > 0
-    for dec, heads, a, (d, v) in calls:
+    a = ((3, 2, conf, IOU) if mode == "csl"
+         else (18, _kfiou_anchors(), STRIDES, conf, IOU))
+    for dec, heads, (d, v) in calls:
         assert all(h.dtype == torch.bfloat16 for h in heads)
         heads = tuple(jnp.asarray(h.float().permute(0, 2, 3, 1).numpy())
                       for h in heads)

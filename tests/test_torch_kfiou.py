@@ -319,6 +319,31 @@ def test_post_process_kfiou_defer(conf):
                                atol=1e-4)
 
 
+@pytest.mark.parametrize("conf", [0.05, 0.5])
+def test_segments_equal_post_process_kfiou_defer(conf):
+    """Detect's decode and post-process as the segments that a card
+    replays as CUDA graphs (``detect._DecodePost``), run eagerly in order,
+    equal ``decode_kfiou_scores`` + ``post_process_kfiou_defer`` to the
+    bit, at both widths (882 candidates an image, as above)."""
+    from types import SimpleNamespace
+
+    from ryolo_tpu_torch.detect import _DecodePost
+    from ryolo_tpu_torch.eval.postprocess import (SMALL_K,
+                                                  post_process_kfiou_defer)
+    from ryolo_tpu_torch.nn.heads import decode_kfiou_scores
+
+    tmaps = _torch(_maps(4, scale=1.5, grids=(6, 3, 2)))
+    chain = _DecodePost(SimpleNamespace(mode="kfiou", na=NA,
+                                        anchors=_anchors()), NC, conf, 0.4)
+    dets, valid = chain.post_process(chain.decode(tmaps))
+    assert list(chain.tails) == [882 if conf == 0.05 else SMALL_K]
+    w_dets, w_valid = post_process_kfiou_defer(
+        decode_kfiou_scores(tmaps, NA, NC), tmaps, NA, _anchors(), STRIDES,
+        conf, 0.4)
+    assert int(valid.sum()) > 10
+    assert torch.equal(valid, w_valid) and torch.equal(dets, w_dets)
+
+
 # assignment and losses -----------------------------------------------------
 
 def test_angle_gated_candidates_match_jax():

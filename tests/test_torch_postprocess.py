@@ -6,6 +6,8 @@ tests/test_postprocess.py:58-215).  On the CPU the JAX NMS runs its XLA
 IoU (``rotated_nms.py:34-39``) and the port its plain PyTorch IoU.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -131,6 +133,58 @@ def test_deferred_theta_matches_full_decode():
         d, v = post_process_fixed(torch.from_numpy(full), conf, 0.4)
         np.testing.assert_array_equal(got[1], v.numpy())
         np.testing.assert_array_equal(got[0], d.numpy())
+
+
+@pytest.mark.parametrize("conf,iou,seed,k", [(0.5, 0.4, 0, 512),
+                                             (0.25, 0.65, 1, 1008),
+                                             (0.05, 0.2, 2, 1008)])
+def test_segments_equal_post_process_defer(conf, iou, seed, k):
+    """Detect's decode and post-process as the segments that a card
+    replays as CUDA graphs (``detect._DecodePost``), run eagerly in order,
+    equal ``decode_csl_defer`` + ``post_process_defer`` to the bit, at
+    both widths of the top-k selection."""
+    from ryolo_tpu_torch.detect import _DecodePost
+    from ryolo_tpu_torch.eval.postprocess import post_process_defer
+    from ryolo_tpu_torch.nn import STRIDES
+    from ryolo_tpu_torch.nn.heads import decode_csl_defer
+    from ryolo_tpu_torch.nn.yolo import make_anchors
+
+    heads = [nhwc_to_nchw(m) for m in _head_maps(seed)]
+    anchors = make_anchors(STRIDES, MODEL_CFG["anchors"])
+    chain = _DecodePost(SimpleNamespace(mode="csl", na=3, anchors=anchors),
+                        NC, conf, iou)
+    dets, valid = chain.post_process(chain.decode(heads))
+    assert list(chain.tails) == [k]
+    w_dets, w_valid = post_process_defer(
+        decode_csl_defer(heads, anchors, STRIDES, NC), heads, 3, NC, conf,
+        iou)
+    assert valid.sum() > 0
+    assert torch.equal(valid, w_valid) and torch.equal(dets, w_dets)
+
+
+@pytest.mark.parametrize("ulps", [-0.25, 0.0, 0.25])
+def test_threshold_at_a_candidates_float32_score(ulps):
+    """A threshold that rounds to a candidate's float32 score ``s`` (``s``
+    plus ``ulps`` of its ulp): scores compare with it in float32, as JAX's
+    weakly typed threshold, so ``s`` itself does not pass (score strictly
+    above), where a float64 comparison would pass it at -1/4 ulp.  Keep
+    sets and detections equal JAX's."""
+    from ryolo_tpu_torch.eval.postprocess import select_rows
+
+    maps = _head_maps(0)
+    dec = _decoded(maps)
+    conf = np.max(dec[..., 6:] * dec[..., 5:6], -1)  # float32 products
+    s = np.sort(conf[0])[::-1][100]
+    thres = float(s) + ulps * float(np.spacing(s))
+    assert np.float32(thres) == s
+    sel = select_rows(torch.from_numpy(dec), thres)[1]
+    assert int((sel > 0).sum()) == int((conf > s).sum())
+    assert ((conf.astype(np.float64) > thres).sum() > (conf > s).sum()) \
+        == (ulps < 0)
+    got = _port_pp(dec, maps, thres, 0.4)
+    want = _jax_pp(dec, maps, thres, 0.4)
+    assert want[1].sum() > 0
+    _assert_same_detections(got, want)
 
 
 def _nms_case(seed, k):

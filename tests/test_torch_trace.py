@@ -261,7 +261,6 @@ def test_detect_infer_spans_and_stages(spans_on):
                        "detect.post_process", "detect.infer"]
     assert all(v["count"] == 1 for v in s.values())
     assert s["detect.infer"]["counts"] == {"sync.upload": 1,
-                                           "sync.threshold_upload": 1,
                                            "sync.post_process_read": 1}
     # the fetch, outside every span: counted, not spanned
     assert trace.COUNTS["sync.fetch"] - fetched == 2
@@ -298,7 +297,6 @@ def test_detect_counts_whether_spans_are_on_or_off(on):
         trace.reset()
     assert {k: v for k, v in s["counters"].items()
             if k.startswith("sync.")} == {"sync.upload": 2,
-                                          "sync.threshold_upload": 2,
                                           "sync.post_process_read": 2,
                                           "sync.fetch": 4}
     assert (s["spans"]["detect.infer"]["count"] == 2) if on \
@@ -381,7 +379,8 @@ _DETECT = {"detect.infer": {"count": 4, "host_s": 0.1, "self_s": 0.0,
                             "device_s": 0.08,
                             "counts": {"sync.upload": 4,
                                        "sync.post_process_read": 4,
-                                       "upload.h2d": 12}},
+                                       "upload.h2d": 12,
+                                       "graph.replay": 16}},
            "detect.upload": {"count": 4, "host_s": 0.01, "self_s": 0.01,
                              "device_s": 0.009, "counts": {}},
            "detect.convert": {"count": 4, "host_s": 0.001, "self_s": 0.001,
@@ -402,6 +401,7 @@ _TRAIN = {"train.step": {"count": 10, "host_s": 1.0, "self_s": 0.0,
                           "device_s": None, "counts": {}}}
 READS = {"detect.syncs": ("detect", 2.0),
          "detect.uploads": ("detect", 3.0),
+         "detect.graph_replays": ("detect", 4.0),
          "train.loader_workers_ms": ("train", 4.0)}
 
 
@@ -434,17 +434,35 @@ def test_readers_take_the_ports_own_summary_in_a_traced_run(metric,
         with trace.span(top, CPU):
             trace.count("sync.upload")
             trace.count("upload.h2d", 3)
+            trace.count("graph.replay", 4)
             with trace.span("loader.wait"):
                 time.sleep(1e-3)
     spans = trace.summary()["spans"]
     record = {"kind": kind, "trace": {"busy_s": 0.0}}
     want = {"detect.syncs": 1.0, "detect.uploads": 3.0,
+            "detect.graph_replays": 4.0,
             "train.loader_workers_ms":
                 1e3 * spans["loader.wait"]["host_s"] / 2}[metric]
     read = harness.load_reader(metric)
     assert read(record) == pytest.approx(want)
     assert record == {"kind": kind, "trace": {"busy_s": 0.0}}
     assert read({"kind": kind}) is None
+
+
+def test_a_port_without_graphs_reads_no_replays():
+    """Batches that replayed no CUDA graph (the parent's program, or the
+    CPU's eager path) leave ``detect.graph_replays`` out; the other
+    counts still read."""
+    from h100_bench import harness
+
+    top = dict(_DETECT["detect.infer"])
+    top["counts"] = {k: v for k, v in top["counts"].items()
+                     if k != "graph.replay"}
+    record = {"kind": "detect", "spans": dict(_DETECT, **{"detect.infer":
+                                                          top}),
+              "counters": {}}
+    assert harness.load_reader("detect.graph_replays")(record) is None
+    assert harness.load_reader("detect.syncs")(record) == pytest.approx(2.0)
 
 
 def test_a_port_without_spans_reads_nothing(monkeypatch):
