@@ -4,9 +4,9 @@ Port of the JAX ``detect.py`` (:34-203) with the same arguments plus
 ``--device`` (default ``cuda``; the CPU only when asked, and no fallback
 when no card is found).  The ``.pth`` is deploy-fused
 (:func:`ryolo_tpu_torch.nn.deploy.fuse_for_inference`), each batch runs
-forward -> deferred decode (CSL: rows without theta; KFIoU: scores alone)
--> post-process with rotated NMS on the device, and a background thread
-letterboxes the next batches meanwhile.
+forward -> deferred decode (CSL: rows without theta; KFIoU and YOLO11's
+OBB: scores alone) -> post-process with rotated NMS on the device, and a
+background thread letterboxes the next batches meanwhile.
 Decode and post-process stay float32 under ``--dtype bf16`` and ``int8``,
 and run as the steps of ``eval/postprocess.py`` (:class:`_DecodePost`): on
 a card replayed as CUDA graphs, captured at the first batch of each input
@@ -36,7 +36,8 @@ from ryolo_tpu_torch.eval.postprocess import (MAX_DET, MAX_NMS,
                                               select_scores, tail_width)
 from ryolo_tpu_torch.nn import STRIDES, Yolo, fuse_for_inference
 from ryolo_tpu_torch.nn.heads import (decode_csl_defer, decode_kfiou_scores,
-                                      deferred_kfiou_box)
+                                      decode_obb_scores, deferred_kfiou_box,
+                                      deferred_obb_box)
 from ryolo_tpu_torch.utils import trace
 from ryolo_tpu_torch.utils.checkpoint import load_pth
 from ryolo_tpu_torch.utils.config import load_yaml
@@ -114,8 +115,10 @@ class _DecodePost:
     selection and the candidate count, which the host reads to pick the
     width ``k``; (c_k) the top-k selection and the NMS's inputs; the NMS,
     eager, through ``eval.postprocess``; (d_k) the compaction.  The same
-    steps as ``post_process_defer`` and ``post_process_kfiou_defer``, which
-    the evaluator calls.
+    steps as ``post_process_defer``, ``post_process_kfiou_defer`` and
+    ``post_process_obb_defer``, which the evaluator calls.  The OBB head's
+    deferred box decode resolves ``B * k`` rows a call, counted as
+    ``obb.box_decode`` on the host from the shapes.
 
     Without a graph memory pool (the CPU) the segments run eagerly.  With
     one each segment is a CUDA graph (:class:`_Segment`): the head maps
@@ -125,7 +128,9 @@ class _DecodePost:
 
     def __init__(self, model, nc: int, conf_thres: float, iou_thres: float,
                  pool=None, stream=None):
-        csl, na, anchors = model.mode == "csl", model.na, model.anchors
+        mode, na, anchors = model.mode, model.na, model.anchors
+        csl = mode == "csl"
+        self.obb = mode == "obb"
         self.iou_thres = iou_thres
         self.graphed = pool is not None
         self.segment = lambda fn: _Segment(fn, pool, stream)
@@ -133,8 +138,11 @@ class _DecodePost:
         self.tails = {}  # k -> (c_k, d_k, keep buffer)
 
         def decode(heads):
-            return (decode_csl_defer(heads, anchors, STRIDES, nc) if csl
-                    else decode_kfiou_scores(heads, na, nc))
+            if csl:
+                return decode_csl_defer(heads, anchors, STRIDES, nc)
+            if self.obb:
+                return decode_obb_scores(heads, nc)
+            return decode_kfiou_scores(heads, na, nc)
 
         def select(dec):
             payload, sel = (select_rows if csl else select_scores)(
@@ -145,6 +153,9 @@ class _DecodePost:
             if csl:
                 return nms_fields(payload, sel, k, theta_fn=lambda idx:
                                   deferred_theta(heads, idx, na, nc))
+            if self.obb:
+                return nms_fields(payload, sel, k, box_fn=lambda idx:
+                                  deferred_obb_box(heads, idx, nc, STRIDES))
             return nms_fields(payload, sel, k, box_fn=lambda idx:
                               deferred_kfiou_box(heads, idx, na, anchors,
                                                  STRIDES))
@@ -174,6 +185,8 @@ class _DecodePost:
                 keep)
         fields, compact_k, keep_buf = self.tails[k]
         rows, boxes, scores, valid = fields(self.heads, payload, sel)
+        if self.obb:
+            trace.count("obb.box_decode", sel.shape[0] * k)
         if not self.graphed:
             return compact_k(rows, nms_keep(boxes, scores, valid,
                                             self.iou_thres, MAX_DET))
@@ -343,9 +356,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--weight_path", type=str, default="")
     parser.add_argument("--mode", default="csl", nargs="?",
-                        choices=["csl", "kfiou"])
+                        choices=["csl", "kfiou", "obb"],
+                        help="obb: YOLO11's anchor-free head, with --ver "
+                             "yolo11 (f32 or bf16)")
     parser.add_argument("--ver", default="yolov5", nargs="?",
-                        choices=["yolov4", "yolov5", "yolov7"])
+                        choices=["yolov4", "yolov5", "yolov7", "yolo11"])
     parser.add_argument("--conf_thres", type=float, default=0.7)
     parser.add_argument("--nms_thres", type=float, default=0.2)
     parser.add_argument("--batch_size", type=int, default=8)

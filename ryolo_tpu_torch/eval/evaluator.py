@@ -5,8 +5,9 @@
 Per batch, on the model's device: the uint8 images go up through pinned
 memory and are divided by 255 there, the deploy-fused model runs its
 forward with the deferred decode of its head (CSL: rows without theta;
-KFIoU: scores alone), :func:`post_process_defer` or
-:func:`post_process_kfiou_defer` selects and suppresses (on a card one
+KFIoU and OBB: scores alone), :func:`post_process_defer`,
+:func:`post_process_kfiou_defer` or :func:`post_process_obb_defer` selects
+and suppresses (on a card one
 ``nms_mask`` and one ``nms_scan`` launch), and ``loss_fn`` gives the
 val-loss items from the fused head maps.  The detections come back
 through pinned host buffers without blocking the issuing thread; three
@@ -45,7 +46,8 @@ from ryolo_tpu_torch.eval.metrics import (IOU_THRESHOLDS,
                                           get_batch_statistics)
 from ryolo_tpu_torch.eval.postprocess import (MAX_DET, MAX_NMS,
                                               post_process_defer,
-                                              post_process_kfiou_defer)
+                                              post_process_kfiou_defer,
+                                              post_process_obb_defer)
 from ryolo_tpu_torch.nn.yolo import STRIDES
 from ryolo_tpu_torch.ops.render import to_device
 from ryolo_tpu_torch.parallel.mesh import shard_batch
@@ -127,6 +129,10 @@ def eval_step(model, arrays: Dict[str, torch.Tensor],
     if model.mode == "csl":
         dets, valid = post_process_defer(
             dec, neck, model.na, model.n_classes, float(conf_thres),
+            float(iou_thres), max_nms=max_nms, max_det=max_det)
+    elif model.mode == "obb":  # dec: the OBB (conf, cls_id)
+        dets, valid = post_process_obb_defer(
+            dec, neck, model.n_classes, STRIDES, float(conf_thres),
             float(iou_thres), max_nms=max_nms, max_det=max_det)
     else:  # dec: the KFIoU (conf, cls_id)
         dets, valid = post_process_kfiou_defer(

@@ -3,7 +3,8 @@
 Counterpart of ``ryolo_tpu/eval/postprocess.py`` (``_select_nms_compact``
 :42, ``post_process_fixed`` :113, ``_class_max`` :136, ``deferred_theta``
 :158, ``post_process_defer`` :198, ``post_process_kfiou_defer`` :220,
-``_pp_tail`` :248), with the same semantics: score = obj x max class
+``_pp_tail`` :248; ``post_process_obb_defer``, for YOLO11's OBB head, has no
+JAX twin), with the same semantics: score = obj x max class
 conf, keep score > conf_thres, descending score with ties by candidate
 index, cap ``max_nms``, NMS on boxes offset by ``class * 4096`` with
 angles in degrees, cap ``max_det``; outputs ``(B, max_det, 7)`` rows
@@ -23,7 +24,8 @@ import math
 
 import torch
 
-from ryolo_tpu_torch.nn.heads import deferred_kfiou_box
+from ryolo_tpu_torch.nn.heads import (deferred_kfiou_box, deferred_obb_box,
+                                      first_max)
 from ryolo_tpu_torch.ops.rotated_nms import nms_rotated_masked
 from ryolo_tpu_torch.utils import trace
 
@@ -40,13 +42,8 @@ def _class_max(predictions: torch.Tensor):
     ascending class order, so the first maximum wins."""
     nc = predictions.shape[-1] - 6
     obj = predictions[..., 5]
-    conf = predictions[..., 6] * obj
-    cls_id = torch.zeros_like(conf, dtype=torch.int32)
-    for c in range(1, nc):
-        s = predictions[..., 6 + c] * obj
-        hit = s > conf
-        conf = torch.where(hit, s, conf)
-        cls_id = torch.where(hit, c, cls_id)
+    conf, cls_id = first_max(predictions[..., 6 + c] * obj
+                              for c in range(nc))
     return conf, cls_id.float()
 
 
@@ -169,8 +166,8 @@ def select_rows(predictions, conf_thres: float):
 
 
 def select_scores(scores, conf_thres: float):
-    """``(payload, sel)`` of the KFIoU ``(conf, cls_id)``: the class alone,
-    and the score where it passes ``conf_thres``, else -1."""
+    """``(payload, sel)`` of the KFIoU or OBB ``(conf, cls_id)``: the class
+    alone, and the score where it passes ``conf_thres``, else -1."""
     conf, cls_id = scores
     return [cls_id.float()], _select(conf, conf_thres)
 
@@ -208,3 +205,19 @@ def post_process_kfiou_defer(scores, neck_outs, na: int, anchors, strides,
     return _pp_tail(payload, sel, iou_thres, max_nms, max_det,
                     box_fn=lambda idx: deferred_kfiou_box(
                         neck_outs, idx, na, anchors, strides))
+
+
+def post_process_obb_defer(scores, neck_outs, nc: int, strides,
+                           conf_thres: float, iou_thres: float,
+                           max_nms: int = MAX_NMS, max_det: int = MAX_DET):
+    """Post-process the OBB head with its box decode deferred: ``scores``
+    ``(conf, cls_id)`` from
+    :func:`ryolo_tpu_torch.nn.heads.decode_obb_scores`, ``neck_outs`` the
+    head maps.  The DFL sides, the angle and the rotated centre come from
+    :func:`ryolo_tpu_torch.nn.heads.deferred_obb_box` for the selected
+    candidates only; the result equals :func:`post_process_fixed` on the
+    full :func:`ryolo_tpu_torch.nn.heads.decode_obb` rows."""
+    payload, sel = select_scores(scores, conf_thres)
+    return _pp_tail(payload, sel, iou_thres, max_nms, max_det,
+                    box_fn=lambda idx: deferred_obb_box(neck_outs, idx, nc,
+                                                        strides))

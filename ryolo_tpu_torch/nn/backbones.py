@@ -1,6 +1,7 @@
 """Backbones: YOLOv4 CSPDarknet-53, YOLOv5, YOLOv7 ELAN (counterparts of
 ``ryolo_tpu/nn/backbones.py``: ``Backbonev4`` :29, ``Backbonev5`` :61,
-``Backbonev7`` :87).
+``Backbonev7`` :87), and YOLO11 at scale l (Ultralytics'
+``cfg/models/11/yolo11-obb.yaml``, no JAX twin).
 
 Each returns ``(d3, d4, d5)`` at strides 8/16/32, its SPP variant applied
 to d5.  The JAX graphs' space-to-depth stems (``S2DStem``,
@@ -12,8 +13,9 @@ from __future__ import annotations
 
 from torch import nn
 
-from ryolo_tpu_torch.nn.blocks import (C3, CSP, ELAN1, SPP, SPPCSPC, SPPF,
-                                       ConvBlock, MaxConv)
+from ryolo_tpu_torch.nn.blocks import (C2PSA, C3, CSP, ELAN1, SPP, SPPCSPC,
+                                       SPPF, YOLO11_EPS, C3k2, ConvBlock,
+                                       MaxConv, conv11)
 
 
 class Backbonev4(nn.Module):
@@ -96,5 +98,32 @@ class Backbonev7(nn.Module):
         return d3, d4, d5
 
 
+class Backbone11(nn.Module):
+    """YOLO11 at scale l (depth 1.0, width 1.0, at most 512 channels):
+    layers 0-10 of ``yolo11-obb.yaml``, every C3k2 nesting C3k; returns
+    (layer 4, layer 6, layer 10) at 512, 512 and 512 channels."""
+
+    def __init__(self, deploy: bool = False):
+        super().__init__()
+        kw = dict(deploy=deploy)
+        self.b0 = conv11(3, 64, 3, 2, **kw)
+        self.b1 = conv11(64, 128, 3, 2, **kw)
+        self.b2 = C3k2(128, 256, e=0.25, **kw)
+        self.b3 = conv11(256, 256, 3, 2, **kw)
+        self.b4 = C3k2(256, 512, e=0.25, **kw)
+        self.b5 = conv11(512, 512, 3, 2, **kw)
+        self.b6 = C3k2(512, 512, **kw)
+        self.b7 = conv11(512, 512, 3, 2, **kw)
+        self.b8 = C3k2(512, 512, **kw)
+        self.b9 = SPPF(512, 512, eps=YOLO11_EPS, **kw)
+        self.b10 = C2PSA(512, **kw)
+
+    def forward(self, x):
+        d3 = self.b4(self.b3(self.b2(self.b1(self.b0(x)))))
+        d4 = self.b6(self.b5(d3))
+        d5 = self.b10(self.b9(self.b8(self.b7(d4))))
+        return d3, d4, d5
+
+
 BACKBONES = {"yolov4": Backbonev4, "yolov5": Backbonev5,
-             "yolov7": Backbonev7}
+             "yolov7": Backbonev7, "yolo11": Backbone11}

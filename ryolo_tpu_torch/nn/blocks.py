@@ -4,7 +4,10 @@ Counterparts of ``ryolo_tpu/nn/blocks.py``: ``mish`` :43, the activations
 :47, ``ConvBlock`` :288, ``Bottleneck`` :418, ``CSP`` :441, ``C5`` :471,
 ``C3`` :492, ``ELAN1`` :517, ``ELAN2`` :546, ``MaxConv`` :575,
 ``ImplicitA/M`` :596/:613, ``RepConv`` :630, ``SPP`` :708, ``SPPF`` :733,
-``SPPCSPC`` :755, ``max_pool_same`` :55, ``upsample2x`` :79.  Attribute
+``SPPCSPC`` :755, ``max_pool_same`` :55, ``upsample2x`` :79.  YOLO11's
+blocks (``conv11``, ``Bottleneck11``, ``C3k``, ``C3k2``, ``Attention``,
+``PSABlock``, ``C2PSA``) follow Ultralytics' ``nn/modules/{conv,block}.py``
+and have no JAX twin.  Attribute
 names follow the reference ``.pth`` layout
 (``ryolo_tpu_torch/utils/checkpoint.py``), registered in its order, which
 is not always the order of the forward (``CSP`` and ``C3`` register their
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ryolo_tpu_torch.ops.int8_conv import int8_conv
+from ryolo_tpu_torch.utils import trace
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # flax momentum 0.9 (blocks.py:379)
@@ -106,8 +110,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-def _bn(c: int) -> BatchNorm2d:
-    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+def _bn(c: int, eps: float = BN_EPS) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=eps, momentum=BN_MOMENTUM)
 
 
 class Int8Conv(nn.Module):
@@ -149,7 +153,8 @@ def _act_to(act, conv, x):
 
 
 class ConvBlock(nn.Module):
-    """Conv2d (pad (k-1)/2) -> BN -> activation, as ``conv.0``/``conv.1``.
+    """Conv2d (pad (k-1)/2, ``groups``) -> BN (``eps``) -> activation, as
+    ``conv.0``/``conv.1``.
 
     ``bn=False, bias=True`` is a detection-head conv (``conv.0`` with
     bias).  In deploy form the BN is folded into a biased ``conv.0``; in
@@ -159,14 +164,15 @@ class ConvBlock(nn.Module):
     """
 
     def __init__(self, c1: int, c2: int, k: int, s: int, act: str,
-                 bn: bool = True, bias: bool = False, deploy: bool = False):
+                 bn: bool = True, bias: bool = False, deploy: bool = False,
+                 groups: int = 1, eps: float = BN_EPS):
         super().__init__()
-        layers = [nn.Conv2d(c1, c2, k, s, (k - 1) // 2,
+        layers = [nn.Conv2d(c1, c2, k, s, (k - 1) // 2, groups=groups,
                             bias=bias or (bn and deploy))]
         if bias and not deploy:
             nn.init.zeros_(layers[0].bias)  # a head conv: flax's zero init
         if bn and not deploy:
-            layers.append(_bn(c2))
+            layers.append(_bn(c2, eps))
         self.conv = nn.Sequential(*layers)
         self.act = ACTIVATIONS[act]
         self.bn = bn
@@ -386,13 +392,16 @@ class SPP(nn.Module):
 
 
 class SPPF(nn.Module):
-    """YOLOv5 fast SPP: three chained 5 x 5 pools, swish."""
+    """YOLOv5 fast SPP: three chained 5 x 5 pools, swish (YOLO11's SPPF
+    too, with its BatchNorm ``eps``)."""
 
-    def __init__(self, c1: int, c2: int, deploy: bool = False):
+    def __init__(self, c1: int, c2: int, deploy: bool = False,
+                 eps: float = BN_EPS):
         super().__init__()
         c_ = c1 // 2
-        self.cv1 = ConvBlock(c1, c_, 1, 1, "swish", deploy=deploy)
-        self.cv2 = ConvBlock(4 * c_, c2, 1, 1, "swish", deploy=deploy)
+        kw = dict(deploy=deploy, eps=eps)
+        self.cv1 = ConvBlock(c1, c_, 1, 1, "swish", **kw)
+        self.cv2 = ConvBlock(4 * c_, c2, 1, 1, "swish", **kw)
 
     def forward(self, x):
         x = self.cv1(x)
@@ -424,3 +433,148 @@ class SPPCSPC(nn.Module):
         y1 = torch.cat([x1] + [max_pool_same(x1, k) for k in self.pools], 1)
         y1 = self.cv6(self.cv5(y1))
         return self.cv7(torch.cat([y1, self.cv2(x)], 1))
+
+
+# Ultralytics' BatchNorm eps (``nn/modules/conv.py`` Conv); its momentum,
+# 0.03, would matter in training only, which YOLO11 does not offer yet
+YOLO11_EPS = 1e-3
+
+
+def conv11(c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
+           act: bool = True, deploy: bool = False) -> ConvBlock:
+    """Ultralytics' ``Conv(c1, c2, k, s, g=g, act=act)``: Conv2d (pad
+    k//2, groups ``g``, no bias) -> BatchNorm (eps 1e-3) -> SiLU, or no
+    activation; ``DWConv(c, c, k)`` is ``g = c``."""
+    return ConvBlock(c1, c2, k, s, "swish" if act else "linear",
+                     deploy=deploy, groups=g, eps=YOLO11_EPS)
+
+
+class Bottleneck11(nn.Module):
+    """Ultralytics' ``Bottleneck(c1, c2, shortcut, k=(3, 3), e)``: 3x3 to
+    ``int(c2 * e)`` channels, 3x3 to c2, the residual iff ``shortcut``
+    and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True,
+                 e: float = 0.5, deploy: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = conv11(c1, c_, 3, deploy=deploy)
+        self.cv2 = conv11(c_, c2, 3, deploy=deploy)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3k(nn.Module):
+    """Ultralytics' ``C3k(c1, c2, n=2, e=0.5)``: ``cv3(cat(m(cv1(x)),
+    cv2(x)))`` over ``n`` 3x3-3x3 bottlenecks at ``int(c2 * e)``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 2, shortcut: bool = True,
+                 e: float = 0.5, deploy: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        kw = dict(deploy=deploy)
+        self.cv1 = conv11(c1, c_, 1, **kw)
+        self.cv2 = conv11(c1, c_, 1, **kw)
+        self.cv3 = conv11(2 * c_, c2, 1, **kw)
+        self.m = nn.Sequential(*(Bottleneck11(c_, c_, shortcut, 1.0, **kw)
+                                 for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C3k2(nn.Module):
+    """Ultralytics' ``C3k2(c1, c2, n, c3k, e)`` (a C2f): ``cv1`` to ``2c``
+    channels (``c = int(c2 * e)``), split in two halves, each of the ``n``
+    blocks ``m`` taking the last piece, ``cv2`` over all ``2 + n`` pieces.
+    The blocks are :class:`C3k` when ``c3k`` holds (every C3k2 at scales
+    m, l and x), else :class:`Bottleneck11` at ``e = 0.5``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 2, c3k: bool = True,
+                 e: float = 0.5, shortcut: bool = True,
+                 deploy: bool = False):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        kw = dict(deploy=deploy)
+        self.cv1 = conv11(c1, 2 * c, 1, **kw)
+        self.cv2 = conv11((2 + n) * c, c2, 1, **kw)
+        self.m = nn.ModuleList(
+            C3k(c, c, 2, shortcut, **kw) if c3k
+            else Bottleneck11(c, c, shortcut, **kw) for _ in range(n))
+
+    def forward(self, x):
+        y = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            y.append(m(y[-1]))
+        return self.cv2(torch.cat(y, 1))
+
+
+class Attention(nn.Module):
+    """Ultralytics' ``Attention(dim, num_heads, attn_ratio=0.5)``: ``qkv``
+    (1x1, no activation) viewed as ``(B, heads, 2kd + hd, N)`` and split
+    into q (kd), k (kd) and v (hd), ``hd = dim / heads``, ``kd = hd / 2``;
+    ``softmax_keys(q^T k / sqrt(kd))``; then ``proj(v attn^T + pe(v))``
+    with ``pe`` a depthwise 3x3."""
+
+    def __init__(self, dim: int, num_heads: int, attn_ratio: float = 0.5,
+                 deploy: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        kw = dict(act=False, deploy=deploy)
+        self.qkv = conv11(dim, dim + 2 * self.key_dim * num_heads, 1, **kw)
+        self.proj = conv11(dim, dim, 1, **kw)
+        self.pe = conv11(dim, dim, 3, 1, g=dim, **kw)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        q, k, v = self.qkv(x).view(
+            b, self.num_heads, 2 * self.key_dim + self.head_dim, h * w).split(
+            [self.key_dim, self.key_dim, self.head_dim], 2)
+        attn = ((q.transpose(-2, -1) @ k) * self.scale).softmax(-1)
+        x = (v @ attn.transpose(-2, -1)).view(b, c, h, w) \
+            + self.pe(v.reshape(b, c, h, w))
+        return self.proj(x)
+
+
+class PSABlock(nn.Module):
+    """Ultralytics' ``PSABlock(c, attn_ratio=0.5, num_heads)``: ``x +=
+    attn(x)``, then ``x += ffn(x)``, the FFN 1x1 to 2c (SiLU) and 1x1 back
+    (no activation)."""
+
+    def __init__(self, c: int, num_heads: int, deploy: bool = False):
+        super().__init__()
+        self.attn = Attention(c, num_heads, 0.5, deploy=deploy)
+        self.ffn = nn.Sequential(conv11(c, 2 * c, 1, deploy=deploy),
+                                 conv11(2 * c, c, 1, act=False,
+                                        deploy=deploy))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.ffn(x)
+
+
+class C2PSA(nn.Module):
+    """Ultralytics' ``C2PSA(c1, c1, n)``: ``cv1`` to ``2c`` channels (``c =
+    c1 / 2``), split into ``a`` and ``b``, ``b`` through ``n`` PSABlocks of
+    ``c / 64`` heads, ``cv2(cat(a, b))``.  The PSABlocks run in the span
+    ``detect.psa``."""
+
+    def __init__(self, c1: int, n: int = 2, deploy: bool = False):
+        super().__init__()
+        self.c = c = c1 // 2
+        self.cv1 = conv11(c1, 2 * c, 1, deploy=deploy)
+        self.cv2 = conv11(2 * c, c1, 1, deploy=deploy)
+        self.m = nn.Sequential(*(PSABlock(c, c // 64, deploy=deploy)
+                                 for _ in range(n)))
+
+    def forward(self, x):
+        a, b = self.cv1(x).split((self.c, self.c), 1)
+        with trace.span("detect.psa", x.device):
+            b = self.m(b)
+        return self.cv2(torch.cat([a, b], 1))

@@ -21,9 +21,10 @@ from typing import Iterable, List, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from ryolo_tpu_torch.nn.blocks import (BN_EPS, C3, CSP, ELAN1, ELAN2,
-                                       SPPCSPC, ConvBlock, Int8Conv, RepConv)
+from ryolo_tpu_torch.nn.blocks import (C3, CSP, ELAN1, ELAN2, SPPCSPC,
+                                       ConvBlock, Int8Conv, RepConv)
 from ryolo_tpu_torch.nn.yolo import Yolo
 from ryolo_tpu_torch.ops.int8_conv import activation_scale
 
@@ -34,38 +35,41 @@ def _np64(t) -> np.ndarray:
     return np.asarray(t, np.float64)
 
 
-def _bn_only(bn: Mapping):
-    """BN (inference form) as per-channel ``(scale, bias)`` in float64."""
-    scale = _np64(bn["weight"]) / np.sqrt(_np64(bn["running_var"]) + BN_EPS)
+def _bn_only(bn: Mapping, eps: float):
+    """BN (inference form, its own ``eps``) as per-channel ``(scale,
+    bias)`` in float64."""
+    scale = _np64(bn["weight"]) / np.sqrt(_np64(bn["running_var"]) + eps)
     bias = _np64(bn["bias"]) - _np64(bn["running_mean"]) * scale
     return scale, bias
 
 
-def _fold_conv_bn(weight, bn: Mapping, conv_bias=None):
-    """Fold BN into the preceding OIHW conv -> float32 ``(weight, bias)``."""
-    scale, bias = _bn_only(bn)
+def _fold_conv_bn(weight, bn: Mapping, eps: float, conv_bias=None):
+    """Fold BN into the preceding OIHW conv -> float32 ``(weight, bias)``;
+    a grouped (depthwise) kernel folds the same way, output channel by
+    output channel."""
+    scale, bias = _bn_only(bn, eps)
     kernel = _np64(weight) * scale[:, None, None, None]
     if conv_bias is not None:
         bias = bias + _np64(conv_bias) * scale
     return np.float32(kernel), np.float32(bias)
 
 
-def _fuse_repconv(sd: Mapping, prefix: str):
+def _fuse_repconv(sd: Mapping, prefix: str, mod: RepConv):
     """RepVGG merge: 3x3-BN + centre-padded 1x1-BN (+ identity BN)."""
     def sub(name):
         return {k[len(name):]: v for k, v in sd.items() if k.startswith(name)}
 
     dk, db = _fold_conv_bn(sd[prefix + "rbr_dense.0.weight"],
-                           sub(prefix + "rbr_dense.1."))
+                           sub(prefix + "rbr_dense.1."), mod.rbr_dense[1].eps)
     pk, pb = _fold_conv_bn(sd[prefix + "rbr_1x1.0.weight"],
-                           sub(prefix + "rbr_1x1.1."))
+                           sub(prefix + "rbr_1x1.1."), mod.rbr_1x1[1].eps)
     kernel = _np64(dk)
     ch, cw = kernel.shape[2] // 2, kernel.shape[3] // 2
     kernel[:, :, ch, cw] += _np64(pk)[:, :, 0, 0]
     bias = _np64(db) + _np64(pb)
     ident = sub(prefix + "rbr_identity.")
     if ident:
-        scale, ibias = _bn_only(ident)
+        scale, ibias = _bn_only(ident, mod.rbr_identity.eps)
         kernel[:, :, ch, cw] += np.eye(kernel.shape[1]) * scale[:, None]
         bias = bias + ibias
     return np.float32(kernel), np.float32(bias)
@@ -89,21 +93,32 @@ _V7_HEADS = {f"neck.conv{i + 4}": (f"neck.ia{i}", f"neck.im{i}")
 
 
 def fuse_state_dict(model: Yolo) -> dict:
-    """The deploy-structure state_dict of ``model`` (train structure)."""
+    """The deploy-structure state_dict of ``model`` (train structure): each
+    BatchNorm folded with its own eps, and a bare biased ``nn.Conv2d``
+    outside any block (the OBB head's last convs) copied as it is."""
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     heads = _V7_HEADS if model.ver == "yolov7" else {}
     out = {}
+    blocks = ()  # prefixes of the blocks folded so far
     for name, mod in model.named_modules():
         p = name + "."
+        if p.startswith(blocks):
+            continue
         if isinstance(mod, RepConv):
-            w, b = _fuse_repconv(sd, p)
+            blocks += (p,)
+            w, b = _fuse_repconv(sd, p, mod)
             out[p + "fused.weight"], out[p + "fused.bias"] = w, b
+        elif isinstance(mod, nn.Conv2d):
+            out[p + "weight"], out[p + "bias"] = sd[p + "weight"], \
+                sd[p + "bias"]
         elif isinstance(mod, ConvBlock):
+            blocks += (p,)
             w = sd[p + "conv.0.weight"]
             if len(mod.conv) == 2:  # BN-backed
                 bn = {k[len(p) + 7:]: v for k, v in sd.items()
                       if k.startswith(p + "conv.1.")}
-                w, b = _fold_conv_bn(w, bn, sd.get(p + "conv.0.bias"))
+                w, b = _fold_conv_bn(w, bn, mod.conv[1].eps,
+                                     sd.get(p + "conv.0.bias"))
             else:  # biased head conv
                 b = sd[p + "conv.0.bias"]
                 if name in heads:
@@ -174,6 +189,10 @@ def fuse_for_inference(model: Yolo, dtype: Optional[torch.dtype] = None,
     (:func:`calibrate_static_scales` makes them static); their scales and
     bias stay float32 whatever ``dtype`` is, and their outputs are cast to
     ``dtype``."""
+    if quantize and model.mode == "obb":
+        raise ValueError("--dtype int8 is not offered for --mode obb: the "
+                         "int8 path covers the CSL and KFIoU heads' models; "
+                         "run YOLO11-OBB in f32 or bf16")
     if device is None:
         device = next(model.parameters()).device
     fused = Yolo(model.n_classes, model.model_config, mode=model.mode,

@@ -15,6 +15,14 @@ level offset + ``a*gh*gw + y*gw + x``; ``x.view(B, na, nf, gh, gw)`` is
 that order already.  The KFIoU inference theta is ``(sigmoid - 0.5) *
 0.5236 + anchor angle``, not wrapped (the loss's decode differs on
 purpose: :mod:`ryolo_tpu_torch.losses.kfiou`).
+
+The OBB head (:class:`OBBHead`, Ultralytics' ``OBB`` of
+``nn/modules/head.py``, no JAX twin) is anchor-free, one candidate a
+position: its maps are ``(B, 64 + nc + 1, gh, gw)``, ``[box | cls |
+angle]``, the box 4 sides x 16 distribution bins (DFL).  Its decode emits
+the port's boxes: ``[x, y, w, h, theta]`` with ``h`` along the local x axis
+(:func:`ryolo_tpu_torch.geometry.xywha2xyxyxyxy`), so Ultralytics' ``(w_u,
+h_u, theta_u)`` becomes ``(h_u, w_u, -theta_u)``.
 """
 
 from __future__ import annotations
@@ -24,8 +32,11 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
+from ryolo_tpu_torch.nn.blocks import conv11
 from ryolo_tpu_torch.ops.render import to_device
+from ryolo_tpu_torch.utils import trace
 
 KFIOU_THETA_WIDTH = 0.5236  # inference decode, model/yololayer.py:96
 
@@ -153,16 +164,24 @@ def decode_kfiou_scores(outs: Sequence[torch.Tensor], na: int, nc: int):
         b = x.shape[0]
         y = _sigmoid_fields(x, na, 6 + nc)
         sobj = y[:, :, 5]
-        conf = y[:, :, 6] * sobj
-        cls_id = torch.zeros_like(conf, dtype=torch.int32)
-        for c in range(1, nc):
-            s = y[:, :, 6 + c] * sobj
-            hit = s > conf
-            conf = torch.where(hit, s, conf)
-            cls_id = torch.where(hit, c, cls_id)
+        conf, cls_id = first_max(y[:, :, 6 + c] * sobj for c in range(nc))
         confs.append(conf.reshape(b, -1))
         ids.append(cls_id.reshape(b, -1))
     return torch.cat(confs, 1), torch.cat(ids, 1)
+
+
+def first_max(scores):
+    """``(max, argmax)`` over an iterable of per-class score tensors: a
+    strict ``>`` chain in class order, so the first maximum wins; the
+    argmax int32."""
+    scores = iter(scores)
+    conf = next(scores)
+    cls_id = torch.zeros_like(conf, dtype=torch.int32)
+    for c, s in enumerate(scores, 1):
+        hit = s > conf
+        conf = torch.where(hit, s, conf)
+        cls_id = torch.where(hit, c, cls_id)
+    return conf, cls_id
 
 
 def deferred_kfiou_box(neck_outs: Sequence[torch.Tensor], idx: torch.Tensor,
@@ -192,4 +211,128 @@ def deferred_kfiou_box(neck_outs: Sequence[torch.Tensor], idx: torch.Tensor,
         out = torch.where(in_lvl[..., None], torch.cat([pxy, pwh, pth], -1),
                           out)
         off += na * hw
+    return out
+
+
+REG_MAX = 16  # DFL bins a box side
+
+
+class OBBHead(nn.Module):
+    """Ultralytics' ``OBB(nc, ne=1, ch)``: for each level three branches
+    of the level's feature, ``cv2`` box (3x3 to ``c2``, 3x3, 1x1 to 64),
+    ``cv3`` class (depthwise 3x3 and 1x1 to ``c3``, twice, then 1x1 to
+    ``nc``), ``cv4`` angle (3x3 to ``c4``, 3x3, 1x1 to 1); each last conv
+    is a bare biased ``nn.Conv2d``.  ``c2 = max(16, ch[0] // 4, 64)``, ``c3
+    = max(ch[0], min(nc, 100))``, ``c4 = max(ch[0] // 4, 1)``.  Returns
+    each level's ``cat([box, cls, angle])``, in the span
+    ``detect.obb_head``."""
+
+    def __init__(self, nc: int, ch, deploy: bool = False):
+        super().__init__()
+        c2 = max(16, ch[0] // 4, 4 * REG_MAX)
+        c3 = max(ch[0], min(nc, 100))
+        c4 = max(ch[0] // 4, 1)
+        kw = dict(deploy=deploy)
+        self.cv2 = nn.ModuleList(nn.Sequential(
+            conv11(x, c2, 3, **kw), conv11(c2, c2, 3, **kw),
+            nn.Conv2d(c2, 4 * REG_MAX, 1)) for x in ch)
+        self.cv3 = nn.ModuleList(nn.Sequential(
+            nn.Sequential(conv11(x, x, 3, g=x, **kw), conv11(x, c3, 1, **kw)),
+            nn.Sequential(conv11(c3, c3, 3, g=c3, **kw),
+                          conv11(c3, c3, 1, **kw)),
+            nn.Conv2d(c3, nc, 1)) for x in ch)
+        self.cv4 = nn.ModuleList(nn.Sequential(
+            conv11(x, c4, 3, **kw), conv11(c4, c4, 3, **kw),
+            nn.Conv2d(c4, 1, 1)) for x in ch)
+
+    def forward(self, feats):
+        with trace.span("detect.obb_head", feats[0].device):
+            return tuple(torch.cat([box(x), cls(x), ang(x)], 1)
+                         for x, box, cls, ang in zip(feats, self.cv2,
+                                                     self.cv3, self.cv4))
+
+
+def _obb_scores(x: torch.Tensor, nc: int) -> torch.Tensor:
+    """A level's class sigmoids in float32, ``(B, nc, gh * gw)``."""
+    b, _, gh, gw = x.shape
+    return torch.sigmoid(x.view(b, -1, gh * gw)[:, 4 * REG_MAX:
+                                                4 * REG_MAX + nc].float())
+
+
+def _obb_box(box: torch.Tensor, angle: torch.Tensor, pos: torch.Tensor,
+             gw: int, stride: int) -> torch.Tensor:
+    """``(..., 5)`` port boxes from candidates' 64 box logits ``(..., 64)``,
+    angle logits ``(...)`` and positions ``pos = gy * gw + gx``.  Each
+    side is the expectation ``sum_i i softmax_i`` over its 16 bins; the
+    angle ``theta_u = (sigmoid(a) - 0.25) pi``; the centre is the anchor
+    point ``(gx + 0.5, gy + 0.5)`` moved by the sides' half difference
+    rotated by ``theta_u``.  Taken in float64 and rounded to float32: the
+    CPU's float32 kernels round a value one way in a SIMD block and
+    another in a loop's remainder, so the deferred decode would depend on
+    where a candidate lies in its tensor; rounded from float64 it does
+    not, and :func:`deferred_obb_box` equals :func:`decode_obb` to the
+    bit."""
+    bins = torch.arange(REG_MAX, dtype=torch.float64, device=box.device)
+    dist = box.double().contiguous().unflatten(-1, (4, REG_MAX)).softmax(-1)
+    l, t, r, b = (dist * bins).sum(-1).unbind(-1)
+    theta = (torch.sigmoid(angle.double()) - 0.25) * math.pi
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    xf, yf = (r - l) / 2, (b - t) / 2
+    gx, gy = (pos % gw).double() + 0.5, (pos // gw).double() + 0.5
+    x = (gx + xf * cos - yf * sin) * stride
+    y = (gy + xf * sin + yf * cos) * stride
+    return torch.stack([x, y, (t + b) * stride, (l + r) * stride, -theta],
+                       -1).float()
+
+
+def decode_obb(outs: Sequence[torch.Tensor], nc: int, strides):
+    """Full OBB decode: rows ``(B, N, nc + 6)`` ``[x, y, w, h, theta(rad),
+    1, class sigmoids...]``, one candidate a position (levels
+    concatenated, row-major).  The objectness column is 1, so
+    :func:`ryolo_tpu_torch.eval.postprocess.post_process_fixed`'s score,
+    ``obj x max class``, is the class maximum, as the score decode's."""
+    decoded = []
+    for x, stride in zip(outs, strides):
+        b, c, gh, gw = x.shape
+        v = x.view(b, c, gh * gw).transpose(1, 2)
+        pos = torch.arange(gh * gw, device=x.device)
+        boxes = _obb_box(v[..., :4 * REG_MAX], v[..., 4 * REG_MAX + nc],
+                         pos, gw, stride)
+        decoded.append(torch.cat([boxes, torch.ones_like(boxes[..., :1]),
+                                  _obb_scores(x, nc).transpose(1, 2)], -1))
+    return torch.cat(decoded, 1)
+
+
+def decode_obb_scores(outs: Sequence[torch.Tensor], nc: int):
+    """OBB candidate scores without the box decode -> ``(conf, cls_id)``,
+    each ``(B, N)``: ``conf = max_c sigmoid(cls_c)`` in f32, the first
+    maximum winning (a strict ``>`` chain in class order).  No
+    objectness."""
+    confs, ids = zip(*(first_max(_obb_scores(x, nc).unbind(1))
+                       for x in outs))
+    return torch.cat(confs, 1), torch.cat(ids, 1)
+
+
+def deferred_obb_box(neck_outs: Sequence[torch.Tensor], idx: torch.Tensor,
+                     nc: int, strides) -> torch.Tensor:
+    """OBB boxes ``(B, k, 5)`` of the selected candidates only: ``idx``
+    ``(B, k)`` global candidate indices in :func:`decode_obb`'s order.
+    Gathers each candidate's 64 box logits and its angle logit and
+    decodes them as the full-width decode does, to the bit (DFL and the
+    rotation on ``B * k`` rows, not on every position)."""
+    b, k = idx.shape
+    out = torch.zeros((b, k, 5), dtype=torch.float32, device=idx.device)
+    bidx = torch.arange(b, device=idx.device)[:, None]
+    off = 0
+    for x, stride in zip(neck_outs, strides):
+        _, c, gh, gw = x.shape
+        hw = gh * gw
+        local = idx - off
+        in_lvl = (local >= 0) & (local < hw)
+        pos = torch.clamp(local, 0, hw - 1)
+        v = x.view(b, c, hw)
+        box = _obb_box(v[bidx, :4 * REG_MAX, pos],
+                       v[bidx, 4 * REG_MAX + nc, pos], pos, gw, stride)
+        out = torch.where(in_lvl[..., None], box, out)
+        off += hw
     return out

@@ -7,7 +7,9 @@ the reference ``.pth`` order, which is not the order of the forward.  The
 PAN concatenations differ by version: v4 puts the downsampled map first,
 v5 second.  In the v7 deploy form the ImplicitA/M priors are absorbed into
 ``conv5``/``conv6``/``conv7`` (``nn/deploy.py``) and are not modules of
-the graph.
+the graph.  YOLO11's neck (Ultralytics' ``yolo11-obb.yaml`` layers 11-22)
+returns the three features its separate head (:class:`~ryolo_tpu_torch.nn.
+heads.OBBHead`) takes.
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ryolo_tpu_torch.nn.blocks import (C3, C5, ELAN2, ConvBlock, ImplicitA,
-                                       ImplicitM, MaxConv, RepConv,
-                                       upsample2x)
+from ryolo_tpu_torch.nn.blocks import (C3, C5, ELAN2, C3k2, ConvBlock,
+                                       ImplicitA, ImplicitM, MaxConv, RepConv,
+                                       conv11, upsample2x)
 
 
 def _head_conv(c1: int, out_ch: int, deploy: bool) -> ConvBlock:
@@ -140,4 +142,28 @@ class Neckv7(nn.Module):
         return x6, h5, h4
 
 
-NECKS = {"yolov4": Neckv4, "yolov5": Neckv5, "yolov7": Neckv7}
+class Neck11(nn.Module):
+    """YOLO11's FPN + PAN at scale l, each concat with the upsampled or
+    strided map first; returns ``(P3, P4, P5)`` at 256, 512 and 512
+    channels, strides 8, 16 and 32."""
+
+    def __init__(self, deploy: bool = False):
+        super().__init__()
+        kw = dict(deploy=deploy)
+        self.n13 = C3k2(1024, 512, **kw)
+        self.n16 = C3k2(1024, 256, **kw)
+        self.n17 = conv11(256, 256, 3, 2, **kw)
+        self.n19 = C3k2(768, 512, **kw)
+        self.n20 = conv11(512, 512, 3, 2, **kw)
+        self.n22 = C3k2(1024, 512, **kw)
+
+    def forward(self, x1, x2, x3):
+        x13 = self.n13(torch.cat([upsample2x(x1), x2], 1))
+        p3 = self.n16(torch.cat([upsample2x(x13), x3], 1))
+        p4 = self.n19(torch.cat([self.n17(p3), x13], 1))
+        p5 = self.n22(torch.cat([self.n20(p4), x1], 1))
+        return p3, p4, p5
+
+
+NECKS = {"yolov4": Neckv4, "yolov5": Neckv5, "yolov7": Neckv7,
+         "yolo11": Neck11}

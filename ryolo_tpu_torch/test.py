@@ -4,7 +4,9 @@ Port of the JAX ``test.py`` (:27-97) with the same arguments plus
 ``--device`` (default ``cuda``; the CPU only when asked, and no fallback
 when no card is found): the rotated mAP@.5:.95 protocol with the val loss
 on the val split of a dataset yaml, through the deploy-fused model
-(:func:`ryolo_tpu_torch.eval.evaluator.evaluate`).  ``--dtype int8`` is the
+(:func:`ryolo_tpu_torch.eval.evaluator.evaluate`).  ``--ver yolo11 --mode
+obb`` (YOLO11's OBB head) has no loss in the port yet: its val loss is not
+reported.  ``--dtype int8`` is the
 bf16 graph with the wide convs int8 (JAX ``test.py:62-66``); the dynamic
 activation scale spans the whole batch, the zero-padded rows of a short
 final batch included, as in the JAX package.
@@ -50,7 +52,8 @@ class Test:
         model.load_state_dict(load_pth(args.weight_path), strict=True)
         logger.info(f"Loaded {len(model.state_dict())} tensors from "
                     f"{args.weight_path}")
-        loss_fn = LOSS_FNS[args.mode](model.anchors, nc, hyp_cfg, device)
+        loss_fn = (None if args.mode == "obb" else
+                   LOSS_FNS[args.mode](model.anchors, nc, hyp_cfg, device))
         if DTYPES[args.dtype] == torch.float32:
             set_float32_math(device)
         if device.type == "cuda":
@@ -69,9 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument("--weight_path", type=str, default="")
     parser.add_argument("--mode", default="csl", nargs="?",
-                        choices=["csl", "kfiou"])
+                        choices=["csl", "kfiou", "obb"],
+                        help="obb: YOLO11's anchor-free head, with --ver "
+                             "yolo11 (f32 or bf16; no val loss)")
     parser.add_argument("--ver", default="yolov5", nargs="?",
-                        choices=["yolov4", "yolov5", "yolov7"])
+                        choices=["yolov4", "yolov5", "yolov7", "yolo11"])
     parser.add_argument("--conf_thres", type=float, default=0.001)
     parser.add_argument("--iou_thres", type=float, default=0.65)
     parser.add_argument("--batch_size", type=int, default=1)

@@ -13,7 +13,8 @@ port's own format, for ``--resume``) under ``weights/<model_name>/``.
 
 Every ``--ver`` (yolov4, yolov5, yolov7) runs with either head, ``--mode
 csl`` or ``kfiou`` (the loss, anchors and loader targets by mode, as the
-JAX ``train.py`` picks them, :40-52 and :119-126).  ``--dtype bf16``
+JAX ``train.py`` picks them, :40-52 and :119-126); ``--ver yolo11 --mode
+obb`` is refused: its loss is not ported.  ``--dtype bf16``
 trains with a bf16 forward and float32 parameters, gradients, optimizer,
 BatchNorm statistics and loss (JAX :96-103; :class:`Trainer`), and its
 per-epoch eval fuses in bf16, as the JAX clone of the bf16 model does
@@ -107,6 +108,12 @@ class Train:
 
     def _check_options(self):
         args = self.args
+        if args.mode == "obb" or args.ver == "yolo11":
+            raise ValueError(
+                f"--ver {args.ver} --mode {args.mode}: training YOLO11's OBB "
+                "head is not supported yet (its loss, task-aligned "
+                "assignment with ProbIoU and the DFL loss, is not ported); "
+                "detect and test run it")
         if args.dp > 1:
             if args.sp < 1 or args.dp % args.sp:
                 raise ValueError(f"--dp {args.dp} not divisible by --sp "
@@ -384,9 +391,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--weights_path", type=str, default="")
     parser.add_argument("--model_name", type=str, default="trash")
     parser.add_argument("--mode", default="csl", nargs="?",
-                        choices=["csl", "kfiou"])
+                        choices=["csl", "kfiou", "obb"],
+                        help="obb (YOLO11) is refused: detect and test only")
     parser.add_argument("--ver", default="yolov5", nargs="?",
-                        choices=["yolov4", "yolov5", "yolov7"])
+                        choices=["yolov4", "yolov5", "yolov7", "yolo11"])
     parser.add_argument("--data", type=str, default="")
     parser.add_argument("--config", type=str, default="")
     parser.add_argument("--max_targets", type=int, default=300,

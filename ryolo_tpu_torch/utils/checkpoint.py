@@ -215,11 +215,13 @@ def load_pth(path: str):
 
 def save_pth(model: torch.nn.Module, path: str):
     """Write ``model``'s weights as a reference-format ``.pth``: the
-    state_dict in :func:`state_dict_layout` order, CPU tensors."""
+    state_dict in :func:`state_dict_layout` order, CPU tensors (YOLO11,
+    which has no reference layout: in the model's own order)."""
     sd = model.state_dict()
+    names = (list(sd) if model.ver not in _BACKBONES
+             else [name for name, _ in state_dict_layout(model.ver)])
     torch.save(collections.OrderedDict(
-        (name, sd[name].detach().cpu())
-        for name, _ in state_dict_layout(model.ver)), path)
+        (name, sd[name].detach().cpu()) for name in names), path)
 
 
 def import_state_dict(model: torch.nn.Module, state_dict: Mapping,

@@ -179,3 +179,85 @@ def test_threshold_compares_in_float32_on_the_card(cuda):
     cpu = select_scores((conf, cls), thres)[1]
     card = select_scores((conf.to(cuda), cls.to(cuda)), thres)[1].cpu()
     assert torch.equal(cpu, card) and cpu[0, 17] == -1.0
+
+
+def _obb_model(cuda, dtype, batches, conf):
+    """YOLO11l-OBB, ``init_weights``, fused; at conf 0.7 its class biases
+    shifted so that the fullest image of each batch has 100 or more
+    candidates above it, as :func:`_prior` does for the anchor heads."""
+    from chip_smoke import init_weights
+    from ryolo_tpu_torch.nn import Yolo, fuse_for_inference
+
+    model = Yolo(NC, {}, mode="obb", ver="yolo11")
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = fuse_for_inference(model.eval(), dtype=dtype, device=cuda)
+    if conf < 0.5:
+        return model
+    with torch.no_grad():
+        cls = [torch.cat([h.float().flatten(2)[:, 64:64 + NC] for h in
+                          model((torch.from_numpy(images).to(cuda)
+                                 .permute(0, 3, 1, 2).float() / 255.0)
+                                .to(dtype))], 2).amax(1)
+               for images in batches]
+
+        def count(p):
+            return min(int((torch.sigmoid(c + p) > conf).sum(1).max())
+                       for c in cls)
+        lo, hi = -30.0, 30.0
+        for _ in range(50):
+            mid = 0.5 * (lo + hi)
+            lo, hi = (mid, hi) if count(mid) < 100 else (lo, mid)
+        for branch in model.head.cv3:
+            branch[2].bias += hi
+    return model
+
+
+@pytest.mark.parametrize("conf,iou,width", [(0.001, 0.65, "full"),
+                                            (0.7, 0.2, "small")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_obb_graphs_equal_eager(cuda, dtype, conf, iou, width):
+    """YOLO11l-OBB's chain (score decode; selection and count; top-k with
+    the deferred DFL box decode and the NMS inputs; compaction): four
+    replays a call, equal to the eager ``post_process_obb_defer`` of the
+    same head maps bit for bit, ``obb.box_decode`` counted as ``B * k``
+    at every call, one ``nms_mask`` and one ``nms_scan`` launch a call."""
+    from ryolo_tpu_torch.detect import Detect, _Stages
+    from ryolo_tpu_torch.eval.postprocess import (MAX_NMS, SMALL_K,
+                                                  post_process_obb_defer)
+    from ryolo_tpu_torch.nn import STRIDES
+    from ryolo_tpu_torch.nn.heads import decode_obb_scores
+    from ryolo_tpu_torch.ops import _build
+    from ryolo_tpu_torch.ops.cuda_nms import LAUNCHES
+    from ryolo_tpu_torch.utils import trace
+
+    _build.build(["rotated_nms"])
+    rng = np.random.default_rng(11)
+    distinct = [rng.integers(0, 256, (BATCH, SIZE, SIZE, 3), np.uint8)
+                for _ in range(3)]
+    batches = distinct + [distinct[0], distinct[1][:BATCH - 1]]
+    model = _obb_model(cuda, dtype, distinct, conf)
+    seen = []
+    model.register_forward_hook(
+        lambda _m, _i, out: seen.append([h.clone() for h in out]))
+    det = Detect(Namespace(conf_thres=conf, nms_thres=iou))
+    n = sum((SIZE // s) ** 2 for s in STRIDES)
+    k = SMALL_K if width == "small" else min(MAX_NMS, n)
+    for i, images in enumerate(batches):
+        before = dict(LAUNCHES)
+        replays = trace.COUNTS["graph.replay"]
+        decodes = trace.COUNTS["obb.box_decode"]
+        dets, valid = det.infer(model, images, dtype, cuda, NC,
+                                _Stages(cuda))
+        assert {key: LAUNCHES[key] - before[key] for key in LAUNCHES} == \
+            {"nms_mask": 1, "nms_scan": 1}
+        assert trace.COUNTS["graph.replay"] - replays == 4
+        assert trace.COUNTS["obb.box_decode"] - decodes == len(images) * k
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            w_dets, w_valid = post_process_obb_defer(
+                decode_obb_scores(seen[-1], NC), seen[-1], NC, STRIDES,
+                conf, iou)
+        assert torch.equal(valid, w_valid) and torch.equal(dets, w_dets), i
+        assert int(valid.sum()) > 0
+    assert len(det._chains) == 2  # batches of 4 and of 3
+    assert {w for c in det._chains.values() for w in c.tails} == {k}

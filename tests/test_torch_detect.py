@@ -353,7 +353,8 @@ def test_port_imports_nothing_of_jax():
     files += [REPO / "chip_smoke.py", REPO / "tests" / "torch_dp_ranks.py",
               REPO / "tests" / "torch_sp_ranks.py",
               REPO / "scripts" / "torch_dp_grad_probe.py",
-              REPO / "scripts" / "torch_sp_memory.py"]
+              REPO / "scripts" / "torch_sp_memory.py",
+              REPO / "scripts" / "torch_obb_profile.py"]
     assert len(files) > 15
     banned = {"jax", "jaxlib", "flax", "optax", "ryolo_tpu"}
     for f in files:

@@ -158,7 +158,7 @@ def test_repconv_identity_branch_fuses():
             bn.bias.normal_(0, 0.2)
             bn.running_mean.normal_(0, 0.2)
             bn.running_var.uniform_(0.5, 1.5)
-    w, b = _fuse_repconv(rep.state_dict(), "")
+    w, b = _fuse_repconv(rep.state_dict(), "", rep)
     fused = RepConv(8, 8, deploy=True).eval()
     fused.fused.weight.data = torch.from_numpy(w)
     fused.fused.bias.data = torch.from_numpy(b)
